@@ -1,0 +1,357 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (clustering_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each printing its own lines; any failure exits non-zero:
+
+  1. device: the card's name and power limit, torch and CUDA versions;
+  2. build: compile the CUDA kernels from csrc/ with nvcc;
+  3. each kernel against its plain PyTorch version on the card at
+     N = 2^16, D = 4, on the tile lists the main path plans there: counts,
+     ids and labels exact, distances bit-equal;
+  4. the density CLI on cuda against the same CLI on cpu at N = 2^15:
+     pop, fe and clust.* files identical, nn ids identical, nn distances
+     bit-equal or within one unit of the last printed digit;
+  5. the main path at N = 2^20, D = 4: ``density -r 0.1 -T 0.5 0.5 2.0``
+     through the port's CLI, with its stage walls, the launch count of
+     every kernel (each must be > 0) and output invariants.
+
+The line before the last holds the kernels' JSON record; the last line is
+{"ok": true, "device": {...}}. It imports nothing of JAX.
+"""
+
+import contextlib
+import io
+import json
+import os
+import re
+import subprocess
+import tempfile
+import time
+
+import numpy as np
+
+N_KERNELS = 1 << 16
+N_SLICE = 1 << 15
+N_MAIN = 1 << 20
+DIM = 4
+RADIUS = 0.1
+ARGV = ["density", "-f", "coords.dat", "-r", str(RADIUS), "-p", "pop",
+        "-d", "fe", "-b", "nn", "-o", "clust", "-T", "0.5", "0.5", "2.0",
+        "-v"]
+THRESHOLDS = ("0.50", "1.00", "1.50", "2.00")
+KERNELS = {
+    "pops_bidir": "clustering_tpu/ops/pallas_kernels.py:291",
+    "nn_bidir": "clustering_tpu/ops/pallas_kernels.py:1091",
+    "label_min_bidir": "clustering_tpu/ops/pallas_kernels.py:1383",
+}
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def synthetic_fel(n, d, seed=0):
+    """Metastable Markov walk between anisotropic gaussian basins
+    (temporally correlated frames, like MD data); bench.py's generator."""
+    rng = np.random.default_rng(seed)
+    centers = np.asarray([
+        [0.0, 0.0, 0.0, 0.0],
+        [1.1, 0.4, -0.2, 0.1],
+        [-0.8, 1.0, 0.3, -0.2],
+        [0.5, -0.9, 0.1, 0.3],
+    ])[:, :d]
+    n_basins = len(centers)
+    scales = np.linspace(0.25, 0.08, d)
+    stay = 0.9995
+    jumps = rng.random(n) > stay
+    basin = np.cumsum(jumps)
+    basin_seq = rng.integers(0, n_basins, size=int(basin[-1]) + 1)
+    which = basin_seq[basin]
+    return (centers[which]
+            + rng.normal(size=(n, d)) * scales).astype(np.float32)
+
+
+# -- phase 1 -------------------------------------------------------------------
+
+def phase_device():
+    # the run uses one card: show torch only the first visible one
+    first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+    os.environ["CUDA_VISIBLE_DEVICES"] = first
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    if torch.cuda.device_count() != 1:
+        fail(f"expected one visible card, got {torch.cuda.device_count()}")
+    card = ["-i", first] if first.isdigit() else []
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"] + card,
+        capture_output=True, text=True, check=True).stdout.strip()
+    print("[device]", smi.splitlines()[0])
+    print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda},"
+          f" {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    return torch
+
+
+# -- phase 2 -------------------------------------------------------------------
+
+def phase_build():
+    from clustering_tpu_torch.ops import _build
+    t0 = time.perf_counter()
+    path, _ = _build.build()
+    _build.library()
+    print(f"[build] {os.path.relpath(path)} in"
+          f" {time.perf_counter() - t0:.3f}s")
+
+
+# -- phase 3 -------------------------------------------------------------------
+
+def timed(torch, fn, reps=3):
+    """(result, mean ms) of ``fn`` over ``reps`` runs after one warm-up,
+    with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / reps
+
+
+def max_abs_err(got, want):
+    """Largest |got - want| over the elements, 0.0 for none."""
+    if got.numel() == 0:
+        return 0.0
+    return float((got.double() - want.double()).abs().max())
+
+
+def phase_kernels(torch):
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.density import free_energies
+    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.ops.neighbors import compute_sigma2
+    from clustering_tpu_torch.ops.screening import ThresholdSeriesScreener
+    dev = torch.device("cuda")
+    coords = synthetic_fel(N_KERNELS, DIM, seed=0)
+    eng = DensityEngine(coords, device=dev)
+    rb, cb, n = eng.row_block, eng.col_block, eng.n
+    rec = {}
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    # populations at the main path's radius
+    name, ti, tj, rmask = eng.pops_plan([RADIUS])
+    ct = eng.coords_t(name)
+    r2 = put(np.asarray([np.float32(RADIUS) ** 2], np.float32))
+    args = (ct, r2, n, put(ti), put(tj), put(rmask), rb, cb)
+    got, ms = timed(torch, lambda: kernels.pops_bidir(*args))
+    want, plain_ms = timed(torch, lambda: kernels.pops_bidir_plain(*args))
+    bad = int((got != want).sum())
+    err = max_abs_err(got, want)
+    print(f"[kernels] pops_bidir: {len(ti)} tiles, {bad} count mismatches,"
+          f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if bad:
+        fail("pops_bidir disagrees with its plain version")
+    rec["pops_bidir"] = (err, ms, plain_ms)
+
+    # nearest neighbours: the band pass's tile list in Morton order
+    counts = want[0, :n].cpu().numpy()
+    order, _ = eng._padded(name)
+    pops = np.empty(n, np.int64)
+    pops[order] = counts
+    fe = free_energies(pops)
+    _, band_eff = eng.nn_band_mask()
+    bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band_eff))
+    fe_l = eng._fe_layout(fe, "morton")
+    oid = eng.oid("morton")
+    ct_m = eng.coords_t("morton")
+
+    def nn_run(fn):
+        return fn(ct_m, fe_l, oid, n, bti, btj,
+                  kernels.nn_keys_init(eng.n_pad, dev), rb, cb)
+
+    got, ms = timed(torch, lambda: nn_run(kernels.nn_bidir))
+    want, plain_ms = timed(torch, lambda: nn_run(kernels.nn_bidir_plain))
+    gd, gj = kernels.unpack_keys(got[:, :n])
+    wd, wj = kernels.unpack_keys(want[:, :n])
+    bad_j = int((gj != wj).sum())
+    bad_d = int((gd.view(torch.int32) != wd.view(torch.int32)).sum())
+    fin = torch.isfinite(gd) & torch.isfinite(wd)
+    err = max_abs_err(gd[fin], wd[fin])
+    print(f"[kernels] nn_bidir: {len(bti)} tiles, {bad_j} id mismatches,"
+          f" {bad_d} distances not bit-equal (max abs err {err}),"
+          f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if bad_j or bad_d:
+        fail("nn_bidir disagrees with its plain version")
+    rec["nn_bidir"] = (err, ms, plain_ms)
+
+    # screening: the first sweep of the series' last threshold
+    nh_d = wd[0].cpu().numpy()
+    nh_d = np.where(np.isfinite(nh_d), nh_d, 0.0)
+    md2 = np.float32(4.0 * compute_sigma2(nh_d))
+    series = ThresholdSeriesScreener(
+        coords, fe, [np.float32(t) for t in THRESHOLDS], device=dev)
+    seng = series.engine
+    nb = int(series.n_below_per_band[-1])
+    tiles = seng.tile_list(0, nb, md2)
+    sti, stj = put(tiles[0]), put(tiles[1])
+    labels = torch.arange(seng.n_pad, dtype=torch.int32, device=dev)
+    dirty = torch.ones(len(tiles[0]), dtype=torch.int32, device=dev)
+    largs = (seng.coords_t, labels, nb, md2, sti, stj, dirty, rb, cb)
+    got, ms = timed(torch, lambda: kernels.label_min_bidir(*largs))
+    want, plain_ms = timed(torch,
+                           lambda: kernels.label_min_bidir_plain(*largs))
+    bad = int((got != want).sum())
+    err = max_abs_err(got, want)
+    print(f"[kernels] label_min_bidir: {len(tiles[0])} tiles, {bad} label"
+          f" mismatches, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if bad:
+        fail("label_min_bidir disagrees with its plain version")
+    rec["label_min_bidir"] = (err, ms, plain_ms)
+    return rec
+
+
+# -- phases 4 and 5 ------------------------------------------------------------
+
+def run_cli(workdir, coords, device):
+    """Run the port's density CLI in ``workdir`` on ``device``; returns
+    its stdout (also echoed)."""
+    from clustering_tpu_torch import cli
+    os.makedirs(workdir, exist_ok=True)
+    np.savetxt(os.path.join(workdir, "coords.dat"), coords, fmt="%.6f")
+    cwd = os.getcwd()
+    buf = io.StringIO()
+    os.environ[cli.DEVICE_ENV] = device
+    try:
+        os.chdir(workdir)
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(ARGV)
+    finally:
+        os.chdir(cwd)
+    out = buf.getvalue()
+    print(out, end="")
+    if rc != 0:
+        fail(f"density CLI on {device} exited {rc}")
+    return out
+
+
+def data_lines(path):
+    with open(path) as fh:
+        return [ln for ln in fh if ln.startswith("#@")
+                or not ln.startswith("#")]
+
+
+def read_nn(path):
+    rows = [ln.split() for ln in data_lines(path) if not ln.startswith("#")]
+    return np.asarray(rows, dtype=np.float64)
+
+
+def phase_slice(tmp):
+    coords = synthetic_fel(N_SLICE, DIM, seed=1)
+    walls = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        run_cli(os.path.join(tmp, device), coords, device)
+        walls[device] = time.perf_counter() - t0
+    a, b = os.path.join(tmp, "cuda"), os.path.join(tmp, "cpu")
+    names = ["pop", "fe"] + [f"clust.{t}" for t in THRESHOLDS]
+    for name in names:
+        if data_lines(os.path.join(a, name)) != data_lines(
+                os.path.join(b, name)):
+            fail(f"{name} differs between cuda and cpu")
+    na, nb = read_nn(os.path.join(a, "nn")), read_nn(os.path.join(b, "nn"))
+    if not np.array_equal(na[:, [0, 2]], nb[:, [0, 2]]):
+        fail("nn ids differ between cuda and cpu")
+    d_a, d_b = na[:, [1, 3]], nb[:, [1, 3]]
+    # one unit of the last of the 6 printed significant digits
+    unit = 10.0 ** (np.floor(np.log10(np.maximum(np.abs(d_b), 1e-30))) - 5)
+    diff = np.abs(d_a - d_b)
+    n_off = int((diff > 0).sum())
+    if (diff > unit * 1.0000001).any():
+        fail("nn distances differ beyond the last printed digit")
+    print(f"[slice] N={N_SLICE}: {', '.join(names)} identical, nn ids"
+          f" identical, {n_off} nn distances differ in the last digit;"
+          f" cuda {walls['cuda']:.3f}s, cpu {walls['cpu']:.3f}s")
+
+
+def phase_main(torch, tmp):
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.density import free_energies
+    coords = synthetic_fel(N_MAIN, DIM, seed=0)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    out = run_cli(os.path.join(tmp, "main"), coords, "cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    walls = {m.group(1): float(m.group(2))
+             for m in re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", out)}
+    for stage in ["populations", "nearest neighbors"] + [
+            f"screening {t}" for t in THRESHOLDS]:
+        if stage not in walls:
+            fail(f"no wall for stage {stage!r}")
+    print(f"[main] N={N_MAIN} D={DIM}: wall {wall:.3f}s, stages "
+          + json.dumps({k: walls[k] for k in walls}))
+    print(f"[main] launches {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched by the main path")
+    d = os.path.join(tmp, "main")
+    pops = np.loadtxt(os.path.join(d, "pop"), dtype=np.int64)
+    nn = read_nn(os.path.join(d, "nn"))
+    clust = np.loadtxt(os.path.join(d, "clust.2.00"), dtype=np.int64)
+    if pops.shape != (N_MAIN,) or pops.min() < 1:
+        fail("populations must be >= 1 for every frame")
+    # the fe file is printed rounded; its exact fp32 values follow from
+    # the integer populations
+    fe = free_energies(pops)
+    fe_file = np.loadtxt(os.path.join(d, "fe"), dtype=np.float64)
+    if not np.allclose(fe_file, fe, rtol=1e-5, atol=1e-6):
+        fail("fe file does not match the populations")
+    if not np.isfinite(fe).all() or not np.isfinite(nn).all():
+        fail("non-finite output")
+    ids = nn[:, [0, 2]].astype(np.int64)
+    if ids.min() < 0 or ids.max() >= N_MAIN:
+        fail("neighbour ids out of range")
+    has_hd = nn[:, 3] > 0
+    if not (fe[ids[has_hd, 1]] < fe[has_hd]).all():
+        fail("a higher-density neighbour without lower free energy")
+    absent = ~has_hd
+    if (ids[absent, 1] != 0).any():
+        fail("absent higher-density neighbours must be (0, 0.0)")
+    n_states = int(clust.max())
+    if n_states < 1:
+        fail("no state at threshold 2.00")
+    print(f"[main] {n_states} states at 2.00; pops in [{pops.min()},"
+          f" {pops.max()}]; {int(absent.sum())} frames without a"
+          " lower-fe neighbour")
+    return launches
+
+
+def main():
+    torch = phase_device()
+    phase_build()
+    rec = phase_kernels(torch)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_slice(tmp)
+        launches = phase_main(torch, tmp)
+    record = {"kernels": [
+        {"name": name, "route": "cuda",
+         "source": f"clustering_tpu_torch/csrc/{name}.cu",
+         "replaces": KERNELS[name], "launches": launches[name],
+         "max_abs_err": rec[name][0], "ms": rec[name][1],
+         "plain_ms": rec[name][2]} for name in KERNELS]}
+    print(json.dumps(record))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

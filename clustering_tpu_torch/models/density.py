@@ -1,0 +1,297 @@
+"""Density-clustering mode driver on PyTorch.
+
+Counterpart of ``clustering_tpu/models/density.py::main``: the same flags,
+artifact files and restart/reuse behaviour (-r/-R, the lumping radius when
+-r is absent, -D/-B/-i reuse, the -T screening series), with the O(N^2)
+stages on the engines of :mod:`clustering_tpu_torch.ops`. The pure-numpy
+helpers are copies of the JAX module's: it imports its ``ops`` package and
+through it jax.
+"""
+
+import sys
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+from clustering_tpu.utils import io
+from clustering_tpu.utils.logger import logger
+
+from ..ops import density as dops
+from ..ops import neighbors as nops
+from ..ops.engine import DensityEngine
+from ..ops.screening import ThresholdSeriesScreener
+from ..utils.timer import stage_timer
+
+
+def _die(msg):
+    print(msg, file=sys.stderr)
+    sys.exit(1)
+
+
+def has_2_digits(val) -> bool:
+    """float-precision two-decimal check (reference: density_clustering.cpp:500-504)."""
+    f = np.float32(val)
+    truncated = np.float32(int(np.float32(f * np.float32(100.0))) / 100.0)
+    return bool(truncated == f)
+
+
+def sorted_fe_order(free_energy) -> np.ndarray:
+    """FE-ascending frame order; stable on ties."""
+    return np.argsort(np.asarray(free_energy), kind="stable")
+
+
+def assign_low_density_frames(clustering, nhhd_idx, free_energy):
+    """Assign unclustered frames to their nearest higher-density neighbour's
+    cluster (pointer jumping along the acyclic higher-density chain)."""
+    c = np.asarray(clustering, dtype=np.int64).copy()
+    nhhd = np.asarray(nhhd_idx, dtype=np.int64)
+    n = len(c)
+    ptr = np.where(c > 0, np.arange(n, dtype=np.int64), nhhd)
+    while True:
+        nxt = ptr[ptr]
+        if np.array_equal(nxt, ptr):
+            break
+        ptr = nxt
+    resolved = c[ptr]
+    return np.where(c > 0, c, resolved)
+
+
+def sorted_cluster_names(clustering):
+    """Rename states by decreasing population: most populated -> 1; ties
+    give the smaller original id the larger new name."""
+    c = np.asarray(clustering, dtype=np.int64)
+    vals, inverse, counts = np.unique(c, return_inverse=True,
+                                      return_counts=True)
+    order = np.argsort(counts, kind="stable")
+    k = len(vals)
+    new_name = np.empty(k, dtype=np.int64)
+    new_name[order] = k - np.arange(k)
+    return new_name[inverse]
+
+
+def normalized_cluster_names(n_below, clustering, order):
+    """Rename cluster labels to 1..K by ascending raw label over the
+    below-threshold frames; 0 stays 0."""
+    c = np.asarray(clustering, dtype=np.int64)
+    prefix_names = np.unique(c[order[:n_below]])
+    prefix_names = prefix_names[prefix_names != 0]
+    lookup = np.zeros(int(c.max()) + 1 if len(c) else 1, dtype=np.int64)
+    for new, old in enumerate(prefix_names, start=1):
+        lookup[old] = new
+    return lookup[c]
+
+
+def _parse_threshold_series(params, free_energy):
+    """-T FROM STEP TO -> the threshold list, with the reference's fp32
+    loop arithmetic. Raises ValueError on usage errors."""
+    if len(params) > 3:
+        raise ValueError("error: option -T expects at most three floating"
+                         " point arguments: FROM STEP TO.")
+    t_from = np.float32(0.1)
+    t_step = np.float32(0.1)
+    t_to = np.float32(np.max(free_energy))
+    if len(params) >= 1 and params[0] >= 0.0:
+        t_from = np.float32(params[0])
+    if len(params) >= 2:
+        t_step = np.float32(params[1])
+    if len(params) == 3:
+        t_to = np.float32(params[2])
+    if not (has_2_digits(t_from) and has_2_digits(t_step)):
+        raise ValueError("error: -T can handle at maximum two digits.")
+    t_to_low = np.float32(t_to - t_step / np.float32(10.0) + t_step)
+    t_to_high = np.float32(t_to + t_step / np.float32(10.0) + t_step)
+    thresholds = []
+    t = t_from
+    while (t < t_to_low) and not (t_to_high < t):
+        thresholds.append(np.float32(t))
+        t = np.float32(t + t_step)
+    return t_from, t_step, t_to, thresholds
+
+
+def main(args, header_comment, comments_map, device):
+    """density mode on ``device``."""
+    if getattr(args, "check", False):
+        _die("error: --check is not supported by the torch port yet.")
+    coords = io.read_coords(args.file)
+    engine = DensityEngine(coords, device=device)
+    free_energy = None
+    # the pops / fe / nn files are written on a worker thread while the
+    # next stage computes; every write is joined before the end
+    write_pool = ThreadPoolExecutor(max_workers=2)
+    deferred_writes = []
+
+    def _defer_write(fn, path, data):
+        snap = dict(comments_map)
+        deferred_writes.append(
+            write_pool.submit(fn, path, data, header_comment, snap))
+
+    try:
+        free_energy = _free_energy_stage(args, engine, comments_map,
+                                         _defer_write)
+        nh = _nn_stage(args, engine, free_energy, comments_map,
+                       header_comment, write_pool, deferred_writes)
+        if args.output:
+            _cluster_stage(args, coords, free_energy, nh, comments_map,
+                           header_comment, device)
+        for fut in deferred_writes:
+            fut.result()
+    finally:
+        write_pool.shutdown()
+    logger("~~~ freeing memory")
+
+
+def _free_energy_stage(args, engine, comments_map, defer_write):
+    if args.input and (args.free_energy or args.nearest_neighbors):
+        _die("error: for input (-i) -D/-B should be used.")
+    logger("~~~ free energy and population")
+    if args.free_energy_input:
+        logger("    re-using free energy: " + args.free_energy_input)
+        if args.radii or args.radius is not None:
+            logger("warning: radius (-r/-R) is ignored")
+        if args.free_energy or args.population:
+            logger("warning: -p/-d flags are ignored")
+        free_energy = io.read_free_energies(args.free_energy_input)
+        io.read_comments(args.free_energy_input, comments_map)
+        return free_energy
+    if not (args.free_energy or args.population or args.output):
+        return None
+    if args.radii:
+        logger("    calculating free energy and population")
+        if args.output:
+            _die("error: clustering cannot be done with several radii"
+                 " (-R is set).")
+        if not (args.population or args.free_energy):
+            _die("error: no output defined for populations or free"
+                 " energies.\n       why did you define -R ?")
+        radii = list(args.radii)
+        logger("    using radii: " + ", ".join(str(r) for r in radii))
+        with stage_timer("populations"):
+            pops_map = engine.populations(radii)
+        logger("    storing results")
+        for radius in sorted(pops_map):
+            pops = pops_map[radius]
+            if args.population:
+                defer_write(io.write_pops,
+                            io.stringprintf(args.population + "_%f", radius),
+                            pops)
+            if args.free_energy:
+                defer_write(io.write_fes,
+                            io.stringprintf(args.free_energy + "_%f", radius),
+                            dops.free_energies(pops))
+        return None
+    if args.radius is None:
+        # no radius: the lumping radius from NN statistics
+        logger("    computing lumping radius")
+        pops = engine.populations([1.0])[1.0]
+        _, nh_dist, _, _ = engine.nearest_neighbors(dops.free_energies(pops))
+        sigma2 = nops.compute_sigma2(nh_dist)
+        radius_lump = float(np.sqrt(np.float32(4.0 * sigma2)))
+        logger("        d_lump=" + io.fmt_float(radius_lump))
+        comments_map["lumping_radius"] = radius_lump
+        radius = radius_lump
+    else:
+        radius = float(args.radius)
+    logger("    calculating free energy and population")
+    logger("    using radius: " + io.fmt_float(radius))
+    comments_map["clustering_radius"] = radius
+    with stage_timer("populations"):
+        pops = engine.populations([radius])[radius]
+    if args.population:
+        logger("    storing population in: " + args.population)
+        defer_write(io.write_pops, args.population, pops)
+    free_energy = dops.free_energies(pops)
+    if args.free_energy:
+        logger("    storing free energy in: " + args.free_energy)
+        defer_write(io.write_fes, args.free_energy, free_energy)
+    return free_energy
+
+
+def _nn_stage(args, engine, free_energy, comments_map, header_comment,
+              write_pool, deferred_writes):
+    logger("\n~~~ nearest neighbors")
+    if args.nearest_neighbors_input:
+        logger("    re-using nearest neighbor: "
+               + args.nearest_neighbors_input)
+        nh = io.read_neighborhood(args.nearest_neighbors_input)
+        io.read_comments(args.nearest_neighbors_input, comments_map)
+        return nh
+    if not (args.nearest_neighbors or args.output):
+        return None
+    if args.radii:
+        _die("error: nearest neighbor calculation cannot be done with\n"
+             "       several radii (-R is set).")
+    if free_energy is None:
+        _die("error: nearest-neighbor search requires free energies"
+             " (-d/-p/-o or -D).")
+    logger("    calculating nearest neighbors")
+    with stage_timer("nearest neighbors"):
+        nh = engine.nearest_neighbors(free_energy)
+    if comments_map["lumping_radius"] == 0.0:
+        sigma2 = nops.compute_sigma2(nh[1])
+        radius_lump = float(np.sqrt(np.float32(4.0 * sigma2)))
+        logger("    lumping radius: " + io.fmt_float(radius_lump))
+        comments_map["lumping_radius"] = radius_lump
+    if args.nearest_neighbors:
+        logger("    storing nearest neighbors in: " + args.nearest_neighbors)
+        deferred_writes.append(write_pool.submit(
+            io.write_neighborhood, args.nearest_neighbors,
+            nh[0], nh[1], nh[2], nh[3],
+            io.append_comments_map(header_comment, comments_map)))
+    return nh
+
+
+def _cluster_stage(args, coords, free_energy, nh, comments_map,
+                   header_comment, device):
+    if args.radii:
+        _die("error: output needs to depend on single radius\n"
+             "       but several radii (-R) are set.")
+    if args.input:
+        logger("~~~ generating microstates")
+        if args.threshold_screening:
+            logger("warning: screening (-T) is ignored")
+        logger("    reading initial states: " + args.input)
+        clustering = io.read_clustered_trajectory(args.input)
+        io.read_comments(args.input, comments_map)
+        logger("    assigning low density states to initial states")
+        clustering = assign_low_density_frames(clustering, nh[2],
+                                               free_energy)
+        logger("    sorting and renaming states by decreasing population")
+        clustering = sorted_cluster_names(clustering)
+        logger("    storing states in: " + args.output)
+        io.write_clustered_trajectory(args.output, clustering,
+                                      header_comment, comments_map)
+        return
+    if args.threshold_screening is None:
+        _die("error: one of -T/-i is needed to generate output.")
+    logger("\n~~~ free energy screening")
+    try:
+        t_from, t_step, t_to, thresholds = _parse_threshold_series(
+            list(args.threshold_screening), free_energy)
+    except ValueError as exc:
+        _die(str(exc))
+    comments_map["screening_to"] = float(t_to)
+    comments_map["screening_from"] = float(t_from)
+    comments_map["screening_step"] = float(t_step)
+    logger("\n        fe    frames")
+    sigma2 = nops.compute_sigma2(nh[1])
+    max_dist2 = np.float32(4.0 * sigma2)
+    with stage_timer("screening setup"):
+        series = ThresholdSeriesScreener(coords, free_energy, thresholds,
+                                         device=device,
+                                         hd_neighbors=(nh[2], nh[3]))
+    # each step's label download + naming and its file write overlap the
+    # next threshold's sweeps
+    with ThreadPoolExecutor(max_workers=2) as post_pool, \
+            ThreadPoolExecutor(max_workers=2) as io_pool:
+        pending = []
+        for k, tk in enumerate(thresholds):
+            logger("    %6s %9i" % ("%.2f" % tk,
+                                    int(series.n_below_per_band[k])))
+            with stage_timer("screening %.2f" % tk):
+                fut = series.step_submit(k, max_dist2, post_pool)
+            path = io.stringprintf(args.output + ".%0.2f", float(tk))
+            pending.append(io_pool.submit(
+                lambda f=fut, p=path: io.write_clustered_trajectory(
+                    p, f.result(), header_comment, comments_map)))
+        for fut in pending:
+            fut.result()

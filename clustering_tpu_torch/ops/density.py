@@ -1,0 +1,38 @@
+"""Per-frame neighbour populations and free energies.
+
+Counterpart of ``clustering_tpu/ops/density.py``: ``free_energies`` is a
+copy (fp32 division and log, like the reference), ``populations_dense`` the
+dense oracle of the tile-sweep path (the counterpart of ``counts_rows``):
+a frame j counts toward pop_i iff d2(i, j) <= r^2, j == i included.
+"""
+
+import numpy as np
+import torch
+
+from .pairwise import sq_dists
+
+
+def free_energies(pops) -> np.ndarray:
+    """fe_i = -ln(pop_i / max_pop), in fp32."""
+    pops = np.asarray(pops)
+    max_pop = np.float32(pops.max())
+    ratio = pops.astype(np.float32) / max_pop
+    return (-np.log(ratio.astype(np.float32))).astype(np.float32)
+
+
+def populations_dense(coords, radii, device="cpu", row_block=1024):
+    """Dense all-pairs counts: dict radius -> (N,) int64, self included."""
+    x = torch.as_tensor(np.asarray(coords, dtype=np.float32), device=device)
+    radii = list(radii)
+    out = {}
+    counts = torch.zeros((len(radii), x.shape[0]), dtype=torch.int64,
+                         device=x.device)
+    for lo in range(0, x.shape[0], row_block):
+        d2 = sq_dists(x[lo:lo + row_block], x)
+        for r_idx, r in enumerate(radii):
+            r2 = float(np.float32(r) * np.float32(r))
+            counts[r_idx, lo:lo + row_block] = (d2 <= r2).sum(dim=1)
+    host = counts.cpu().numpy()
+    for r_idx, r in enumerate(radii):
+        out[r] = host[r_idx]
+    return out

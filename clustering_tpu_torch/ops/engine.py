@@ -1,0 +1,259 @@
+"""Device-resident driver for the density pipeline's O(N^2) stages.
+
+Counterpart of ``clustering_tpu/ops/engine.py`` on its default single-chip
+path: host-planned, upper-triangular (bidirectional) tile sweeps over
+bbox-pruned tile lists. The frame matrix is uploaded once per layout; the
+bbox distances are computed on the device, thresholded there, and the
+bool planes come to the host, where numpy plans the flat tile lists.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from clustering_tpu.utils import textio_native
+from clustering_tpu.utils.logger import is_verbose, logger
+
+from . import kernels, pruning
+from .pairwise import pair_d2
+
+DEFAULT_ROW_BLOCK = 128
+DEFAULT_COL_BLOCK = 4096
+# the NN band pass: frames within +-4 column blocks of Morton positions
+NN_BAND_BLOCKS = 4
+NN_BAND_ORDER = "morton"
+
+
+def resolve_device(device):
+    """torch.device for ``device``; a CUDA device must exist (there is no
+    silent CPU fallback)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA device requested but torch.cuda is not "
+                           "available")
+    return device
+
+
+class DensityEngine:
+    """Populations and nearest neighbours of one frame matrix on ``device``.
+
+    ``col_block`` must be a multiple of ``row_block`` (the bidirectional
+    closure works on that grid)."""
+
+    def __init__(self, coords, row_block=DEFAULT_ROW_BLOCK,
+                 col_block=DEFAULT_COL_BLOCK, device="cuda"):
+        if col_block % row_block != 0:
+            raise ValueError("col_block must be a multiple of row_block")
+        self.device = resolve_device(device)
+        self.row_block = row_block
+        self.col_block = col_block
+        self.coords = np.ascontiguousarray(coords, dtype=np.float32)
+        self.n, self.d = self.coords.shape
+        self.n_pad = -(-self.n // col_block) * col_block
+        self._orders = {}   # name -> (order or None, padded host (N_pad, D))
+        self._dev = {}      # cached device tensors
+        self.last_stats = {}
+
+    # -- cached layouts ------------------------------------------------------
+
+    def _padded(self, name):
+        """(order, padded) for layout ``name``: 'dim0' (stable sort by the
+        first coordinate) or 'morton'; pads at 3e38."""
+        if name not in self._orders:
+            if name == "dim0":
+                order = np.argsort(self.coords[:, 0], kind="stable")
+            elif name == "morton":
+                native = textio_native.morton_order_pad(self.coords,
+                                                        n_pad=self.n_pad)
+                if native is not None:
+                    self._orders[name] = native
+                    return native
+                order = pruning.morton_order(self.coords)
+            else:
+                raise ValueError(name)
+            padded = np.full((self.n_pad, self.d), np.float32(3e38),
+                             dtype=np.float32)
+            padded[:self.n] = self.coords[order]
+            self._orders[name] = (order, padded)
+        return self._orders[name]
+
+    def _cached(self, key, make):
+        if key not in self._dev:
+            self._dev[key] = make()
+        return self._dev[key]
+
+    def _put(self, arr):
+        return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
+
+    def coords_t(self, name):
+        """(D, N_pad) float32 frame matrix of layout ``name`` on device."""
+        return self._cached(("ct", name),
+                            lambda: self._put(self._padded(name)[1].T))
+
+    def oid(self, name):
+        """(N_pad,) int32 original ids of layout ``name`` (pads IMAX)."""
+        def make():
+            order, _ = self._padded(name)
+            oid = np.full(self.n_pad, kernels.IMAX, dtype=np.int32)
+            oid[:self.n] = order
+            return self._put(oid)
+        return self._cached(("oid", name), make)
+
+    def d2b(self, name):
+        """(nrb, ncb) bbox distance lower bounds of layout ``name``."""
+        return self._cached(("d2b", name), lambda: pruning.bbox_d2(
+            self.coords_t(name), self.row_block, self.col_block))
+
+    def _best_sort(self, thresh2):
+        """The layout (dim0 or morton) that prunes more tiles at this
+        threshold; dim0 on ties."""
+        best, best_skip = None, -1
+        for name in ("dim0", "morton"):
+            skip = int((self.d2b(name) > float(thresh2)).sum())
+            if skip > best_skip:
+                best, best_skip = name, skip
+        return best
+
+    def _log_stats(self, stage, tiles):
+        if is_verbose():
+            frac = (tiles * float(self.row_block * self.col_block)
+                    / (float(self.n) * self.n))
+            logger(f"    [{stage}: {tiles} tiles computed = {frac:.1%} of"
+                   " N^2 incl. padding]")
+
+    # -- populations -----------------------------------------------------------
+
+    def pops_plan(self, radii):
+        """Layout name, upper-triangular tile list and per-tile radius
+        masks of a populations sweep: (name, ti, tj, rmask) numpy int32."""
+        nrb = self.n_pad // self.row_block
+        ncb = self.n_pad // self.col_block
+        upper = pruning.upper_mask(nrb, ncb, self.row_block, self.col_block)
+        sq = [np.float32(r) * np.float32(r) for r in radii]
+        r_max2 = np.float32(max(radii)) * np.float32(max(radii))
+        name = self._best_sort(r_max2)
+        planes = pruning.threshold_planes(self.d2b(name), [r_max2] + sq)
+        tiles = pruning.tile_list(planes[0] & upper)
+        if tiles is None:
+            empty = np.zeros(0, np.int32)
+            return name, empty, empty, empty
+        ti, tj = tiles
+        rmask = np.zeros(len(ti), dtype=np.int32)
+        for r_idx in range(len(radii)):
+            rmask |= planes[1 + r_idx][ti, tj].astype(np.int32) << r_idx
+        return name, ti, tj, rmask
+
+    def populations(self, radii):
+        """dict radius -> (N,) int64 populations (self included)."""
+        t0 = time.perf_counter()
+        radii = list(radii)
+        name, ti, tj, rmask = self.pops_plan(radii)
+        radii2 = self._put(np.asarray(
+            [np.float32(r) * np.float32(r) for r in radii], np.float32))
+        stats = {"computed_tiles": int(len(ti)),
+                 "t_plan": time.perf_counter() - t0}
+        self._log_stats("pops", stats["computed_tiles"])
+        t0 = time.perf_counter()
+        counts = kernels.pops_bidir(
+            self.coords_t(name), radii2, self.n, self._put(ti),
+            self._put(tj), self._put(rmask), self.row_block, self.col_block)
+        counts = counts[:, :self.n].cpu().numpy()
+        stats["t_sweep"] = time.perf_counter() - t0
+        self.last_stats["populations"] = stats
+        order, _ = self._padded(name)
+        unsorted = np.empty_like(counts)
+        unsorted[:, order] = counts
+        return {r: unsorted[i].astype(np.int64) for i, r in enumerate(radii)}
+
+    # -- nearest neighbours ----------------------------------------------------
+
+    def _fe_layout(self, fe, name):
+        order, _ = self._padded(name)
+        fe_pad = np.full(self.n_pad, np.inf, dtype=np.float32)
+        fe_pad[:self.n] = fe[order]
+        return self._put(fe_pad)
+
+    def _nn_sweep(self, name, fe, active, keys):
+        """Sweep the tiles of ``active`` (an upper-triangular closure) in
+        layout ``name``, folding into the id-keyed ``keys``; returns the
+        number of tiles swept."""
+        tiles = pruning.tile_list(active)
+        if tiles is None:
+            return 0
+        kernels.nn_bidir(self.coords_t(name), self._fe_layout(fe, name),
+                         self.oid(name), self.n, self._put(tiles[0]),
+                         self._put(tiles[1]), keys, self.row_block,
+                         self.col_block)
+        return len(tiles[0])
+
+    def nn_band_mask(self):
+        """The band pass's tile mask and its upper-triangular closure."""
+        rb, cb = self.row_block, self.col_block
+        nrb, ncb = self.n_pad // rb, self.n_pad // cb
+        band = pruning.band_mask(nrb, ncb, rb, cb, NN_BAND_BLOCKS * cb)
+        return band, pruning.bidir_closure(band, rb, cb)
+
+    def nearest_neighbors(self, free_energy):
+        """Joint NN / lower-fe NN search with two-phase exact pruning:
+
+          1. a band pass over neighbouring positions of the
+             ``NN_BAND_ORDER`` layout bounds both neighbour distances of
+             every frame;
+          2. the full pass, in whichever of the dim0 and morton layouts
+             sweeps less, skips tiles whose bbox distance exceeds the row
+             block's bound -- tiles holding the true minima always survive.
+
+        Both passes fold into one buffer keyed by original frame id.
+        Distance ties break toward the smaller original id, as in the
+        reference's original-order scan. Returns (nh_idx, nh_d2,
+        nhhd_idx, nhhd_d2) numpy arrays; absent neighbours are (0, 0.0)."""
+        fe = np.asarray(free_energy, dtype=np.float32)
+        rb, cb = self.row_block, self.col_block
+        nrb, ncb = self.n_pad // rb, self.n_pad // cb
+        stats = {"band_tiles": 0}
+        t0 = time.perf_counter()
+        keys = kernels.nn_keys_init(self.n_pad, self.device)
+        if ncb > 2 * NN_BAND_BLOCKS:
+            band_active, band_eff = self.nn_band_mask()
+            stats["band_tiles"] = self._nn_sweep(NN_BAND_ORDER, fe, band_eff,
+                                                 keys)
+            # per-frame bound: the larger of the two band distances
+            d_band, _ = kernels.unpack_keys(keys[:, :self.n])
+            ub_oid = d_band.amax(dim=0)
+            best = None
+            for name in ("dim0", "morton"):
+                oid = self.oid(name).long()
+                ub = torch.full((self.n_pad,), float("inf"),
+                                device=self.device)
+                ub[:self.n] = ub_oid[oid[:self.n]]
+                row_ub = ub.reshape(nrb, rb).amax(dim=1)
+                act = (self.d2b(name) <= row_ub[:, None]).cpu().numpy()
+                if name == NN_BAND_ORDER:
+                    act = act & ~band_active
+                work = int(act.sum())
+                if best is None or work < best[0]:
+                    best = (work, name, act)
+            _, name, active = best
+            stats["order"] = name
+            stats["t_band"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            active = pruning.bidir_closure(active, rb, cb)
+        else:
+            # too few column blocks for a band to prune anything
+            name = NN_BAND_ORDER
+            active = pruning.bidir_closure(np.ones((nrb, ncb), dtype=bool),
+                                           rb, cb)
+        stats["phase2_tiles"] = self._nn_sweep(name, fe, active, keys)
+        d2, ids = kernels.unpack_keys(keys[:, :self.n])
+        absent = ~(d2 < float("inf"))
+        ids = torch.where(absent, 0, ids)
+        d2 = pair_d2(self._put(self.coords), ids)
+        d2 = torch.where(absent, 0.0, d2)
+        ids = ids.cpu().numpy()
+        d2 = d2.cpu().numpy()
+        stats["t_sweep"] = time.perf_counter() - t0
+        stats["computed_tiles"] = stats["band_tiles"] + stats["phase2_tiles"]
+        self.last_stats["nn"] = stats
+        self._log_stats("nn", stats["computed_tiles"])
+        return ids[0], d2[0], ids[1], d2[1]

@@ -1,0 +1,296 @@
+"""The three pairwise tile-sweep kernels: CUDA wrappers, plain versions and
+launch counts.
+
+Each wrapper takes its plain PyTorch version only because its tensors lie
+on the CPU; for CUDA tensors it launches the hand-written kernel from
+``clustering_tpu_torch/csrc`` (built by :mod:`._build`) or raises. Every
+plain version has the wrapper's signature and runs on any device, so the
+card can hold each kernel against it.
+
+Tile lists are flat row-major int32 (ti, tj) pairs over the
+(row_block x col_block) grid of a (D, N_pad) float32 coordinate matrix
+whose pads sit at 3e38.
+
+``LAUNCHES`` counts the kernel launches of each wrapper (plain calls do
+not count); :func:`reset_launches` sets every count to 0.
+"""
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .pairwise import sq_dists
+
+IMAX = int(np.iinfo(np.int32).max)
+# (float_bits(+inf) << 32) | INT32_MAX: "no neighbour", above every
+# finite (d2, id) key
+KEY_NONE = (0x7F800000 << 32) | IMAX
+MAX_RADII_PER_LAUNCH = 8
+
+LAUNCHES = {"pops_bidir": 0, "nn_bidir": 0, "label_min_bidir": 0}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# -- shared helpers -----------------------------------------------------------
+
+def _batches(ti, tj, row_block, col_block, *extra):
+    """Yield (rows, cols, *extra) tile batches: rows (B, row_block) and
+    cols (B, col_block) int64 frame positions, sized so one batch's
+    (B, row_block, col_block) pair block stays near 2^24 elements."""
+    per = max(1, (1 << 24) // (row_block * col_block))
+    dev = ti.device
+    ar_r = torch.arange(row_block, device=dev)
+    ar_c = torch.arange(col_block, device=dev)
+    for lo in range(0, ti.shape[0], per):
+        rows = ti[lo:lo + per].long()[:, None] * row_block + ar_r
+        cols = tj[lo:lo + per].long()[:, None] * col_block + ar_c
+        yield (rows, cols) + tuple(e[lo:lo + per] for e in extra)
+
+
+def _tile_d2(coords_t, rows, cols):
+    x = coords_t[:, rows].permute(1, 2, 0)
+    y = coords_t[:, cols].permute(1, 2, 0)
+    return sq_dists(x, y)
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check(cond, msg):
+    if not cond:
+        raise ValueError(msg)
+
+
+def _check_cuda(coords_t, tensors, ints):
+    """Device, dtype, shape and contiguity checks before a launch."""
+    _check(coords_t.device.type == "cuda", "coords_t must be a CUDA tensor")
+    _check(coords_t.dtype == torch.float32 and coords_t.dim() == 2
+           and coords_t.is_contiguous(),
+           "coords_t must be a contiguous (D, N_pad) float32 tensor")
+    for name, t, dtype, shape in tensors:
+        _check(t.device == coords_t.device,
+               f"{name} must be on {coords_t.device}")
+        _check(t.dtype == dtype, f"{name} must be {dtype}, got {t.dtype}")
+        _check(tuple(t.shape) == tuple(shape),
+               f"{name} must have shape {tuple(shape)}, got "
+               f"{tuple(t.shape)}")
+        _check(t.is_contiguous(), f"{name} must be contiguous")
+    for name, v in ints:
+        _check(0 <= int(v) <= IMAX, f"{name} out of int32 range")
+
+
+def _run(fn_name, count_name, *args):
+    from . import _build
+    lib = _build.library()
+    rc = getattr(lib, fn_name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name}: CUDA launch failed (cudaError {rc})")
+    LAUNCHES[count_name] += 1
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _grid(coords_t, row_block, col_block):
+    n_pad = coords_t.shape[1]
+    _check(n_pad % row_block == 0 and n_pad % col_block == 0,
+           "N_pad must be a multiple of row_block and col_block")
+    _check(1 <= row_block <= 1024, "row_block must be in [1, 1024]")
+
+
+# -- populations ----------------------------------------------------------------
+
+def pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
+                     col_block):
+    """Plain version of :func:`pops_bidir`."""
+    n_pad = coords_t.shape[1]
+    n_radii = radii2.shape[0]
+    out = torch.zeros((n_radii, n_pad), dtype=torch.int32,
+                      device=coords_t.device)
+    keep = (tj >= 0) & (rmask != 0)
+    ti, tj, rmask = ti[keep], tj[keep], rmask[keep]
+    for rows, cols, rm in _batches(ti, tj, row_block, col_block, rmask):
+        d2 = _tile_d2(coords_t, rows, cols)
+        base = ((cols[:, None, :] > rows[:, :, None])
+                & (cols[:, None, :] < n_valid))
+        for r in range(n_radii):
+            bit = ((rm >> r) & 1).bool()[:, None, None]
+            w = base & bit & (d2 <= radii2[r])
+            out[r].index_add_(0, rows.reshape(-1),
+                              w.sum(dim=2, dtype=torch.int32).reshape(-1))
+            out[r].index_add_(0, cols.reshape(-1),
+                              w.sum(dim=1, dtype=torch.int32).reshape(-1))
+    self_cnt = (torch.arange(n_pad, device=coords_t.device) < n_valid)
+    return out + self_cnt.to(torch.int32)[None, :]
+
+
+def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
+               col_block):
+    """Bidirectional population counts over an upper-triangular tile list
+    (replaces ``_pops_bidir_kernel`` + ``_add_self_count``).
+
+    Each strictly-upper pair row < col < n_valid of a tile with
+    d2 <= radii2[r] and bit r of its ``rmask`` set adds 1 to both frames;
+    every frame below n_valid then gets its self count. Returns
+    (R, N_pad) int32 counts in the layout's frame positions."""
+    if coords_t.device.type == "cpu":
+        return pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask,
+                                row_block, col_block)
+    n_dim, n_pad = coords_t.shape
+    n_radii = radii2.shape[0]
+    n_tiles = ti.shape[0]
+    _check_cuda(coords_t, [
+        ("radii2", radii2, torch.float32, (n_radii,)),
+        ("ti", ti, torch.int32, (n_tiles,)),
+        ("tj", tj, torch.int32, (n_tiles,)),
+        ("rmask", rmask, torch.int32, (n_tiles,))], [("n_valid", n_valid)])
+    _grid(coords_t, row_block, col_block)
+    _check(1 <= n_radii <= 31, "1 to 31 radii are supported")
+    out = torch.zeros((n_radii, n_pad), dtype=torch.int32,
+                      device=coords_t.device)
+    with torch.cuda.device(coords_t.device):
+        stream = _stream(coords_t.device)
+        for g in range(0, n_radii, MAX_RADII_PER_LAUNCH):
+            n_g = min(MAX_RADII_PER_LAUNCH, n_radii - g)
+            rm_g = ((rmask >> g) & ((1 << n_g) - 1)).contiguous()
+            if n_tiles == 0:
+                continue
+            _run("ck_pops_bidir", "pops_bidir", _ptr(coords_t), n_pad,
+                 n_dim, _ptr(radii2[g:]), n_g, int(n_valid), _ptr(ti),
+                 _ptr(tj), _ptr(rm_g), n_tiles, row_block, col_block,
+                 _ptr(out[g:]), stream)
+    self_cnt = (torch.arange(n_pad, device=coords_t.device) < n_valid)
+    return out + self_cnt.to(torch.int32)[None, :]
+
+
+# -- nearest neighbours --------------------------------------------------------
+
+def nn_keys_init(n_pad, device):
+    """A fresh (2, N_pad) [nh; hd] key buffer: every key "no neighbour"."""
+    return torch.full((2, n_pad), KEY_NONE, dtype=torch.int64, device=device)
+
+
+def unpack_keys(keys):
+    """(d2 float32, original id int64) of packed keys; KEY_NONE unpacks to
+    (inf, INT32_MAX)."""
+    hi = (keys >> 32).to(torch.int32)
+    return hi.view(torch.float32), keys & 0xFFFFFFFF
+
+
+def nn_bidir_plain(coords_t, fe, oid, n_valid, ti, tj, keys, row_block,
+                   col_block):
+    """Plain version of :func:`nn_bidir`."""
+    n_pad = coords_t.shape[1]
+    pos = torch.arange(n_pad, device=coords_t.device)
+    # pads write into their own (unused) slots of the id-indexed buffer
+    slot = torch.where(pos < n_valid, oid.long(), pos)
+    inf = torch.tensor(float("inf"), device=coords_t.device)
+    for rows, cols in _batches(ti, tj, row_block, col_block):
+        d2 = _tile_d2(coords_t, rows, cols).contiguous()
+        ok = ((d2 > 0.0) & (d2 < inf)
+              & (rows < n_valid)[:, :, None] & (cols < n_valid)[:, None, :])
+        bits = d2.view(torch.int32).long() << 32
+        fe_x = fe[rows][:, :, None]
+        fe_y = fe[cols][:, None, :]
+        k_row = bits | oid[cols].long()[:, None, :]
+        k_col = bits | oid[rows].long()[:, :, None]
+        for side, gate in ((0, ok), (1, ok & (fe_y < fe_x))):
+            best = torch.where(gate, k_row, KEY_NONE).amin(dim=2)
+            keys[side].scatter_reduce_(0, slot[rows].reshape(-1),
+                                       best.reshape(-1), "amin")
+        for side, gate in ((0, ok), (1, ok & (fe_x < fe_y))):
+            best = torch.where(gate, k_col, KEY_NONE).amin(dim=1)
+            keys[side].scatter_reduce_(0, slot[cols].reshape(-1),
+                                       best.reshape(-1), "amin")
+    return keys
+
+
+def nn_bidir(coords_t, fe, oid, n_valid, ti, tj, keys, row_block,
+             col_block):
+    """Bidirectional joint NN / lower-fe NN sweep (replaces
+    ``_nn_bidir_kernel``).
+
+    For every frame of every tile, both the row side and the column side
+    fold their candidates into ``keys`` -- a (2, N_pad) int64 [nh; hd]
+    buffer of packed (float_bits(d2) << 32) | original_id keys indexed by
+    ORIGINAL frame id -- by lexicographic minimum, IN PLACE. Candidates
+    need d2 > 0 (finite) and both frames below n_valid; hd needs strictly
+    lower fe. ``fe`` (N_pad,) float32 and ``oid`` (N_pad,) int32 are in
+    the layout's frame positions. Returns ``keys``."""
+    if coords_t.device.type == "cpu":
+        return nn_bidir_plain(coords_t, fe, oid, n_valid, ti, tj, keys,
+                              row_block, col_block)
+    n_dim, n_pad = coords_t.shape
+    n_tiles = ti.shape[0]
+    _check_cuda(coords_t, [
+        ("fe", fe, torch.float32, (n_pad,)),
+        ("oid", oid, torch.int32, (n_pad,)),
+        ("ti", ti, torch.int32, (n_tiles,)),
+        ("tj", tj, torch.int32, (n_tiles,)),
+        ("keys", keys, torch.int64, (2, n_pad))], [("n_valid", n_valid)])
+    _grid(coords_t, row_block, col_block)
+    if n_tiles == 0:
+        return keys
+    with torch.cuda.device(coords_t.device):
+        _run("ck_nn_bidir", "nn_bidir", _ptr(coords_t), n_pad, n_dim,
+             _ptr(fe), _ptr(oid), int(n_valid), _ptr(ti), _ptr(tj), n_tiles,
+             row_block, col_block, _ptr(keys), _stream(coords_t.device))
+    return keys
+
+
+# -- screening proposals -------------------------------------------------------
+
+def label_min_bidir_plain(coords_t, labels, n_below, max_dist2, ti, tj,
+                          dirty, row_block, col_block):
+    """Plain version of :func:`label_min_bidir`."""
+    out = labels.clone()
+    keep = dirty != 0
+    md2 = torch.tensor(np.float32(max_dist2), device=coords_t.device)
+    for rows, cols in _batches(ti[keep], tj[keep], row_block, col_block):
+        d2 = _tile_d2(coords_t, rows, cols)
+        adj = ((d2 < md2) & (rows < n_below)[:, :, None]
+               & (cols < n_below)[:, None, :])
+        row_p = torch.where(adj, labels[cols][:, None, :], IMAX).amin(dim=2)
+        col_p = torch.where(adj, labels[rows][:, :, None], IMAX).amin(dim=1)
+        out.scatter_reduce_(0, rows.reshape(-1), row_p.reshape(-1), "amin")
+        out.scatter_reduce_(0, cols.reshape(-1), col_p.reshape(-1), "amin")
+    return out
+
+
+def label_min_bidir(coords_t, labels, n_below, max_dist2, ti, tj, dirty,
+                    row_block, col_block):
+    """One bidirectional screening sweep (replaces
+    ``_label_min_bidir_kernel``).
+
+    Over the tiles whose ``dirty`` flag is set, every pair with
+    d2 < max_dist2 and both positions below n_below proposes each frame's
+    label to the other. Returns the swept labels, (N_pad,) int32
+    ``min(labels, proposals)``; ``labels`` is left unchanged."""
+    if coords_t.device.type == "cpu":
+        return label_min_bidir_plain(coords_t, labels, n_below, max_dist2,
+                                     ti, tj, dirty, row_block, col_block)
+    n_dim, n_pad = coords_t.shape
+    n_tiles = ti.shape[0]
+    _check_cuda(coords_t, [
+        ("labels", labels, torch.int32, (n_pad,)),
+        ("ti", ti, torch.int32, (n_tiles,)),
+        ("tj", tj, torch.int32, (n_tiles,)),
+        ("dirty", dirty, torch.int32, (n_tiles,))], [("n_below", n_below)])
+    _grid(coords_t, row_block, col_block)
+    out = labels.clone()
+    if n_tiles == 0:
+        return out
+    with torch.cuda.device(coords_t.device):
+        _run("ck_label_min_bidir", "label_min_bidir", _ptr(coords_t), n_pad,
+             n_dim, _ptr(labels), int(n_below),
+             ctypes.c_float(np.float32(max_dist2)), _ptr(ti), _ptr(tj),
+             _ptr(dirty), n_tiles, row_block, col_block, _ptr(out),
+             _stream(coords_t.device))
+    return out

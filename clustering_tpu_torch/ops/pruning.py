@@ -1,0 +1,165 @@
+"""Block-level spatial pruning for the pairwise tile sweeps.
+
+Counterpart of ``clustering_tpu/ops/pruning.py`` (host planning only).
+The numpy planners are copies of the JAX package's, so the port's frame
+orders, masks and tile sets equal the reference's; the block bounding-box
+distances are computed on the device as plain torch ops. Masks stay bool
+arrays and tile lists are flat: the chunking, power-of-two buckets and
+pads of the JAX package exist only for XLA compile shapes and TPU scalar
+memory.
+
+Pruning is exact: a tile is skipped only when its bounding-box distance
+lower bound exceeds the threshold.
+"""
+
+import numpy as np
+import torch
+
+from clustering_tpu.utils import textio_native
+
+
+def morton_order(coords):
+    """Frame order along a Morton (Z-order) curve; the native pass when
+    the library loads (bit-identical), numpy otherwise. Coordinates are
+    cast to float32 first in both paths."""
+    c32 = np.ascontiguousarray(coords, dtype=np.float32)
+    native = textio_native.morton_order_pad(c32)
+    if native is not None:
+        return native
+    c = c32.astype(np.float64)
+    n, d = c.shape
+    bits = max(1, 62 // d)
+    lo = c.min(axis=0)
+    span = c.max(axis=0) - lo
+    span[span == 0] = 1.0
+    q = ((c - lo) / span * ((1 << bits) - 1)).astype(np.uint64)
+    key = np.zeros(n, dtype=np.uint64)
+    for b in range(bits):
+        for k in range(d):
+            key |= ((q[:, k] >> np.uint64(b)) & np.uint64(1)) \
+                << np.uint64(b * d + k)
+    return np.argsort(key, kind="stable")
+
+
+def block_bboxes(coords, block):
+    """Per-block per-dimension (mins, maxs); coords (N_pad, D) with N_pad a
+    multiple of block."""
+    c = np.asarray(coords)
+    n, d = c.shape
+    blocks = c.reshape(n // block, block, d)
+    return blocks.min(axis=1), blocks.max(axis=1)
+
+
+_BBOX_ROW_CHUNK = 16384
+
+
+def bbox_dist2(row_mins, row_maxs, col_mins, col_maxs):
+    """(n_row_blocks, n_col_blocks) float32 lower bounds on the squared
+    distance between any row-block frame and any col-block frame, scaled
+    downward so fp32 rounding never lifts a bound past a threshold."""
+    nrb, ncb = row_mins.shape[0], col_mins.shape[0]
+    n_dim = row_mins.shape[1]
+    rmin_d = [np.ascontiguousarray(row_mins[:, k], dtype=np.float32)
+              for k in range(n_dim)]
+    rmax_d = [np.ascontiguousarray(row_maxs[:, k], dtype=np.float32)
+              for k in range(n_dim)]
+    cmin_d = [np.ascontiguousarray(col_mins[:, k], dtype=np.float32)
+              for k in range(n_dim)]
+    cmax_d = [np.ascontiguousarray(col_maxs[:, k], dtype=np.float32)
+              for k in range(n_dim)]
+    margin = np.float32(1.0 - (n_dim + 8) * 2.0 ** -23)
+    big = np.float32(np.finfo(np.float32).max) * margin
+    out = np.empty((nrb, ncb), dtype=np.float32)
+    with np.errstate(over="ignore"):
+        for lo in range(0, nrb, _BBOX_ROW_CHUNK):
+            hi = min(lo + _BBOX_ROW_CHUNK, nrb)
+            acc = np.zeros((hi - lo, ncb), dtype=np.float32)
+            gap = np.empty((hi - lo, ncb), dtype=np.float32)
+            g2 = np.empty((hi - lo, ncb), dtype=np.float32)
+            for k in range(n_dim):
+                np.subtract(rmin_d[k][lo:hi, None], cmax_d[k][None, :],
+                            out=gap)
+                np.subtract(cmin_d[k][None, :], rmax_d[k][lo:hi, None],
+                            out=g2)
+                np.maximum(gap, g2, out=gap)
+                np.maximum(gap, np.float32(0.0), out=gap)
+                np.multiply(gap, gap, out=gap)
+                acc += gap
+            # padded blocks at 3e38 overflow to +inf: exactly "far"
+            np.minimum(acc, big, out=acc)
+            acc *= margin
+            out[lo:hi] = acc
+    return out
+
+
+def bbox_d2(coords_t, row_block, col_block):
+    """Device counterpart of ``bbox_dist2`` from the (D, N_pad) frame
+    matrix: the same per-dimension gap accumulation and downward margin,
+    as plain torch ops on the matrix's device."""
+    n_dim, n_pad = coords_t.shape
+    rblk = coords_t.reshape(n_dim, -1, row_block)
+    rmin, rmax = rblk.amin(dim=2), rblk.amax(dim=2)
+    cblk = coords_t.reshape(n_dim, -1, col_block)
+    cmin, cmax = cblk.amin(dim=2), cblk.amax(dim=2)
+    margin = np.float32(1.0 - (n_dim + 8) * 2.0 ** -23)
+    big = float(np.float32(np.finfo(np.float32).max) * margin)
+    acc = torch.zeros((n_pad // row_block, n_pad // col_block),
+                      dtype=torch.float32, device=coords_t.device)
+    for k in range(n_dim):
+        gap = torch.maximum(rmin[k][:, None] - cmax[k][None, :],
+                            cmin[k][None, :] - rmax[k][:, None])
+        gap = gap.clamp_min(0.0)
+        acc = acc + gap * gap
+    return torch.clamp(acc, max=big) * float(margin)
+
+
+def threshold_planes(d2b, thresh2s, strict=False):
+    """(T, nrb, ncb) host bool planes of d2b <= thresh2s[t] (strict <)."""
+    t = torch.tensor(np.asarray(thresh2s, dtype=np.float32),
+                     device=d2b.device)[:, None, None]
+    planes = d2b[None] < t if strict else d2b[None] <= t
+    return planes.cpu().numpy()
+
+
+def bidir_closure(active, row_block, col_block):
+    """Upper-triangular closure of an active-tile set for bidirectional
+    sweeps: tiles ``upper AND (A OR M)``, where M marks the mirrors of
+    active tiles (coarsened to col-block granularity). Every ordered pair
+    demanded by ``active`` is evaluated by exactly one kept tile."""
+    nrb, ncb = active.shape
+    if col_block % row_block != 0:
+        raise ValueError("bidir_closure needs col_block % row_block == 0")
+    span = col_block // row_block
+    assert nrb == ncb * span
+    B = active.reshape(ncb, span, ncb).any(axis=1)
+    ri = np.arange(nrb)[:, None]
+    cj = np.arange(ncb)[None, :]
+    mirror = B[cj, ri // span]
+    upper = (cj + 1) * col_block > ri * row_block
+    return (active | mirror) & upper
+
+
+def upper_mask(nrb, ncb, row_block, col_block):
+    """Tiles that intersect the strict upper triangle."""
+    ri = np.arange(nrb)[:, None]
+    cj = np.arange(ncb)[None, :]
+    return (cj + 1) * col_block > ri * row_block
+
+
+def band_mask(n_row_blocks, n_col_blocks, row_block, col_block, half_width):
+    """Keep-matrix for a diagonal band of +-half_width frames (the NN
+    bounding pass)."""
+    row_centers = (np.arange(n_row_blocks) + 0.5) * row_block
+    col_lo = (np.arange(n_col_blocks)) * col_block
+    col_hi = col_lo + col_block
+    return ((col_hi[None, :] >= row_centers[:, None] - half_width)
+            & (col_lo[None, :] <= row_centers[:, None] + half_width))
+
+
+def tile_list(active):
+    """Row-major flat (ti, tj) int32 lists of the active tiles, or None
+    when nothing is active."""
+    ti, tj = np.nonzero(active)
+    if len(ti) == 0:
+        return None
+    return ti.astype(np.int32), tj.astype(np.int32)

@@ -1,0 +1,358 @@
+"""Free-energy screening: density-connected microstate assignment.
+
+Counterpart of ``clustering_tpu/ops/screening.py`` on its default
+single-chip path. The frames below a free-energy threshold (the first
+``n_below`` positions of the layout) are partitioned into the connected
+components of the graph i ~ j iff d2(i, j) < max_dist2 (= 4 sigma^2),
+with seed labels acting as permanent equivalences.
+
+Labels are int32 frame pointers in layout positions. The fixpoint is
+host-driven: each sweep runs the bidirectional label-min kernel over the
+upper-triangular tile list (tiles gated by per-tile dirty flags), then a
+scatter-min union over the label table with pointer jumping, then new
+dirty row/column flags; one scalar readback per sweep decides whether to
+go on. The last sweep is the verification sweep that changes nothing.
+"""
+
+import time
+
+import numpy as np
+import torch
+
+from clustering_tpu.utils.logger import is_verbose, logger
+
+from . import kernels, pruning
+from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, resolve_device
+
+
+def pointer_jump(table):
+    """Compress label chains until table == table[table]."""
+    while True:
+        nxt = table[table.long()]
+        if torch.equal(nxt, table):
+            return table
+        table = nxt
+
+
+def union_rebase(labels_in, labels_cur):
+    """Label-granularity union: every frame sharing a pre-sweep label is
+    rebased to the minimum post-sweep label proposed for it."""
+    iota = torch.arange(labels_in.shape[0], dtype=labels_in.dtype,
+                        device=labels_in.device)
+    table = iota.scatter_reduce(0, labels_in.long(), labels_cur, "amin")
+    table = pointer_jump(table)
+    return table[labels_in.long()]
+
+
+class ScreeningEngine:
+    """Screening runner over one (layout-ordered) frame matrix on
+    ``device``: pads and uploads the coordinates once and caches the
+    strict-< bbox activity plane per linking distance."""
+
+    def __init__(self, coords_sorted, row_block=DEFAULT_ROW_BLOCK,
+                 col_block=DEFAULT_COL_BLOCK, device="cuda"):
+        if col_block % row_block != 0:
+            raise ValueError("col_block must be a multiple of row_block")
+        self.device = resolve_device(device)
+        self.row_block = row_block
+        self.col_block = col_block
+        coords_sorted = np.asarray(coords_sorted, dtype=np.float32)
+        self.n = coords_sorted.shape[0]
+        self.n_pad = -(-self.n // col_block) * col_block
+        padded = np.full((self.n_pad, coords_sorted.shape[1]),
+                         np.float32(3e38), dtype=np.float32)
+        padded[:self.n] = coords_sorted
+        self.coords_t = torch.as_tensor(np.ascontiguousarray(padded.T),
+                                        device=self.device)
+        self._below = None  # (max_dist2, strict-< host bool plane)
+        self.last_stats = {}
+
+    def _below_plane(self, max_dist2):
+        key = float(max_dist2)
+        if self._below is None or self._below[0] != key:
+            d2b = pruning.bbox_d2(self.coords_t, self.row_block,
+                                  self.col_block)
+            below = pruning.threshold_planes(
+                d2b, [np.float32(max_dist2)], strict=True)[0]
+            self._below = (key, below)
+        return self._below[1]
+
+    def tile_list(self, row_lo, n_below, max_dist2):
+        """Upper-triangular tiles that can hold an admissible pair: bbox
+        distance below the linking distance, inside the n_below prefix,
+        and touching the new-frame cross when ``row_lo`` > 0. Flat
+        row-major (ti, tj) int32, or None."""
+        rb, cb = self.row_block, self.col_block
+        active_lt = self._below_plane(max_dist2)
+        nrb, ncb = active_lt.shape
+        ri = np.arange(nrb)[:, None]
+        cj = np.arange(ncb)[None, :]
+        active = active_lt & (ri * rb < n_below) & (cj * cb < n_below)
+        if row_lo > 0:
+            active &= ((ri + 1) * rb > row_lo) | ((cj + 1) * cb > row_lo)
+        active &= (cj + 1) * cb > ri * rb
+        return pruning.tile_list(active)
+
+    def union_size(self, n_below):
+        """Union prefix: power-of-two col-block count >= n_below."""
+        nub = 1 << int(np.ceil(np.log2(
+            max(-(-n_below // self.col_block), 1))))
+        return min(nub * self.col_block, self.n_pad)
+
+    def _union_step(self, labels_in, labels_swept, union_size):
+        """Union + pointer jumping + dirty column/row flags of one sweep."""
+        rb, cb = self.row_block, self.col_block
+        head_in = labels_in[:union_size]
+        head_out = union_rebase(head_in, labels_swept[:union_size])
+        changed = head_out != head_in
+        labels_out = torch.cat([head_out, labels_in[union_size:]])
+        dirty_col = torch.zeros(self.n_pad // cb, dtype=torch.bool,
+                                device=self.device)
+        dirty_row = torch.zeros(self.n_pad // rb, dtype=torch.bool,
+                                device=self.device)
+        dirty_col[:union_size // cb] = changed.reshape(-1, cb).any(dim=1)
+        dirty_row[:union_size // rb] = changed.reshape(-1, rb).any(dim=1)
+        return labels_out, bool(changed.any()), dirty_col, dirty_row
+
+    def run_device(self, labels, n_below, max_dist2, row_lo=0):
+        """Fixpoint from (N_pad,) int32 device labels; ``row_lo`` > 0
+        marks a series continuation whose first row_lo positions already
+        carry a completed fixpoint at this max_dist2, so only tiles
+        touching the new frames are swept. Returns new device labels."""
+        t0 = time.perf_counter()
+        tiles = self.tile_list(row_lo, n_below, max_dist2)
+        if tiles is None:
+            return labels
+        union_size = self.union_size(n_below)
+        ti = torch.as_tensor(tiles[0], device=self.device)
+        tj = torch.as_tensor(tiles[1], device=self.device)
+        t_plan = time.perf_counter() - t0
+        dirty_col = torch.ones(self.n_pad // self.col_block,
+                               dtype=torch.bool, device=self.device)
+        dirty_row = torch.ones(self.n_pad // self.row_block,
+                               dtype=torch.bool, device=self.device)
+        iters = 0
+        swept = 0
+        while True:
+            dirty = (dirty_col[tj.long()] | dirty_row[ti.long()])
+            swept += int(dirty.sum())
+            labels_swept = kernels.label_min_bidir(
+                self.coords_t, labels, n_below, max_dist2, ti, tj,
+                dirty.to(torch.int32), self.row_block, self.col_block)
+            labels, changed, dirty_col, dirty_row = self._union_step(
+                labels, labels_swept, union_size)
+            iters += 1
+            if not changed:
+                break
+        if is_verbose():
+            logger(f"    [screening fixpoint: {iters} sweeps,"
+                   f" {len(tiles[0])} tiles/sweep, {swept} swept, bidir,"
+                   " host plan, host-driven]")
+        self.last_stats = {"sweeps": iters, "tiles_per_sweep": len(tiles[0]),
+                           "swept_tiles": swept, "t_plan": t_plan,
+                           "t_fixpoint": time.perf_counter() - t0 - t_plan}
+        return labels
+
+    def run(self, initial_labels, n_below, max_dist2, row_lo=0):
+        """Host wrapper of :meth:`run_device`: (N,) labels in and out."""
+        labels = np.asarray(initial_labels, dtype=np.int32)
+        labels = np.concatenate(
+            [labels, np.arange(self.n, self.n_pad, dtype=np.int32)])
+        out = self.run_device(torch.as_tensor(labels, device=self.device),
+                              n_below, max_dist2, row_lo=row_lo)
+        return out[:self.n].cpu().numpy()
+
+
+class ThresholdSeriesScreener:
+    """Screening runner for a known -T threshold series.
+
+    Frames are laid out in (threshold band, Morton) order: the prefix
+    below every series threshold stays contiguous while Morton order
+    inside each band keeps tile bounding boxes tight. Clusters are named
+    by their minimal FE-sorted frame rank, as in the reference."""
+
+    def __init__(self, coords, free_energy, thresholds,
+                 row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
+                 device="cuda", hd_neighbors=None):
+        coords = np.asarray(coords, dtype=np.float32)
+        fe = np.asarray(free_energy, dtype=np.float32)
+        self.thresholds = [np.float32(t) for t in thresholds]
+        if any(a >= b for a, b in zip(self.thresholds,
+                                      self.thresholds[1:])):
+            raise ValueError("thresholds must be strictly ascending, got "
+                             f"{[float(t) for t in self.thresholds]}")
+        n = len(fe)
+        # band k = first series threshold at or above this frame's fe
+        band = np.searchsorted(self.thresholds, fe, side="left")
+        morton = np.argsort(pruning.morton_order(coords), kind="stable")
+        self.order = np.lexsort((morton, band))
+        self.n_below_per_band = np.cumsum(
+            np.bincount(band, minlength=len(self.thresholds) + 1)
+        )[:len(self.thresholds)]
+        fe_order = np.argsort(fe, kind="stable")
+        self._series_rank = np.empty(n, dtype=np.int64)
+        self._series_rank[self.order] = np.arange(n)
+        # series positions in FE-ascending frame order (for naming)
+        self._fe_asc_pos = self._series_rank[fe_order]
+        self.engine = ScreeningEngine(coords[self.order],
+                                      row_block=row_block,
+                                      col_block=col_block, device=device)
+        self.n = n
+        self._prev_nb = 0
+        self._labels = None
+        self._last_out = None
+        self._last_future = None
+        self._hd_pos = None
+        if hd_neighbors is not None:
+            self.set_hd_neighbors(hd_neighbors)
+
+    def set_hd_neighbors(self, hd_neighbors):
+        """Attach the NN stage's nearest-lower-fe edges (hd_idx, hd_d2)
+        per original frame: below the linking distance each is a genuine
+        screening edge whose endpoint is admitted first, so new frames
+        seed their labels with it (same components, fewer sweeps)."""
+        hd_j = np.asarray(hd_neighbors[0], dtype=np.int64)
+        hd_d = np.asarray(hd_neighbors[1], dtype=np.float32)
+        self._hd_pos = self._series_rank[hd_j[self.order]].astype(np.int32)
+        self._hd_d = hd_d[self.order]
+
+    def _seed_vals(self, lo, hi, max_dist2):
+        """Seeds for positions [lo, hi): the hd edge when it lies below the
+        linking distance, else identity; None without hd data."""
+        if self._hd_pos is None or hi <= lo:
+            return None
+        hdd = self._hd_d[lo:hi]
+        ok = (hdd > 0.0) & (hdd < np.float32(max_dist2))
+        return np.where(ok, self._hd_pos[lo:hi],
+                        np.arange(lo, hi, dtype=np.int32))
+
+    def _upload(self, labels):
+        return torch.as_tensor(np.ascontiguousarray(labels, dtype=np.int32),
+                               device=self.engine.device)
+
+    def _cold_seed(self, nb, max_dist2):
+        labels0 = np.arange(self.engine.n_pad, dtype=np.int32)
+        seeds = self._seed_vals(0, nb, max_dist2)
+        if seeds is not None:
+            labels0[:nb] = seeds
+        return self._upload(labels0), 0
+
+    def _continuation_seed(self, nb, max_dist2):
+        prev_last = int(self._prev_nb)
+        labels = self._labels
+        seeds = self._seed_vals(prev_last, nb, max_dist2)
+        if seeds is not None:
+            labels = labels.clone()
+            labels[prev_last:nb] = self._upload(seeds)
+        return labels, prev_last
+
+    def _generic_seed(self, prev_clustering, nb, max_dist2):
+        """Seed from an arbitrary previous clustering: first-occurrence
+        pointers per state; the sweep must then cover every tile."""
+        prev = np.asarray(prev_clustering, dtype=np.int64)
+        ps = prev[self.order]
+        ps[nb:] = 0
+        zeros = np.flatnonzero(ps == 0)
+        prev_last = int(zeros[0]) if len(zeros) else self.n
+        labels0 = np.arange(self.engine.n_pad, dtype=np.int64)
+        prefix = ps[:nb]
+        seeded = prefix != 0
+        if seeded.any():
+            vals, first_idx = np.unique(prefix[seeded], return_index=True)
+            seeded_pos = np.flatnonzero(seeded)
+            first_occ = seeded_pos[first_idx]
+            labels0[seeded_pos] = first_occ[
+                np.searchsorted(vals, prefix[seeded])]
+        seeds = self._seed_vals(prev_last, nb, max_dist2)
+        if seeds is not None:
+            seg = labels0[prev_last:nb]
+            unassigned = seg == np.arange(prev_last, nb)
+            seg[unassigned] = seeds[unassigned]
+        # full sweep from row 0: the seed is not a known fixpoint
+        return self._upload(labels0), 0
+
+    def step(self, prev_clustering, k, max_dist2):
+        """Run series threshold index ``k``; returns the normalized
+        clustered trajectory in original frame order. Passing the array
+        the previous ``step`` returned continues from the device labels."""
+        nb = int(self.n_below_per_band[k])
+        continuing = (prev_clustering is not None
+                      and prev_clustering is self._last_out
+                      and self._labels is not None)
+        if continuing:
+            labels, prev_last = self._continuation_seed(nb, max_dist2)
+        elif prev_clustering is None:
+            labels, prev_last = self._cold_seed(nb, max_dist2)
+        else:
+            labels, prev_last = self._generic_seed(prev_clustering, nb,
+                                                   max_dist2)
+        if prev_last >= nb:
+            # nothing new below this threshold: keep the previous result
+            out = (np.zeros(self.n, dtype=np.int64) if prev_clustering is None
+                   else np.asarray(prev_clustering, dtype=np.int64).copy())
+            self._last_out = out
+            return out
+        labels = self.engine.run_device(labels, nb, max_dist2,
+                                        row_lo=prev_last)
+        self._labels = labels
+        self._prev_nb = nb
+        out = self._postlude(labels[:nb].cpu().numpy(), nb)
+        self._last_out = out
+        return out
+
+    def _postlude(self, final, nb):
+        """Name components 1..K by their minimal FE-sorted rank; returns
+        the clustered trajectory in original frame order."""
+        comp = np.asarray(final[:nb], dtype=np.int64)
+        fe_asc = self._fe_asc_pos[self._fe_asc_pos < nb]
+        comp_vals, first_at = np.unique(comp[fe_asc], return_index=True)
+        names = np.empty(len(comp_vals), dtype=np.int64)
+        names[np.argsort(first_at, kind="stable")] = \
+            np.arange(1, len(comp_vals) + 1)
+        clustering = np.zeros(self.n, dtype=np.int64)
+        clustering[self.order[:nb]] = names[np.searchsorted(comp_vals, comp)]
+        return clustering
+
+    def reset(self):
+        """Forget all series state; the next step is a cold start."""
+        self._prev_nb = 0
+        self._labels = None
+        self._last_out = None
+        self._last_future = None
+
+    def step_submit(self, k, max_dist2, pool):
+        """Series-order step whose host postlude (label download and
+        naming) runs on ``pool``; returns the Future of what ``step``
+        returns. The whole series must be driven in ascending order
+        through this method from a fresh (or reset) screener."""
+        import concurrent.futures
+        nb = int(self.n_below_per_band[k])
+        cold = self._labels is None
+        if cold:
+            labels, prev_last = self._cold_seed(nb, max_dist2)
+        else:
+            labels, prev_last = self._continuation_seed(nb, max_dist2)
+        if prev_last >= nb:
+            prev_fut = self._last_future
+            out = concurrent.futures.Future()
+            if cold or prev_fut is None:
+                out.set_result(np.zeros(self.n, dtype=np.int64))
+            else:
+                def _chain(f):
+                    try:
+                        out.set_result(f.result().copy())
+                    except BaseException as exc:  # propagate, don't hang
+                        out.set_exception(exc)
+                prev_fut.add_done_callback(_chain)
+            self._last_future = out
+            return out
+        labels = self.engine.run_device(labels, nb, max_dist2,
+                                        row_lo=prev_last)
+        self._labels = labels
+        self._prev_nb = nb
+        # the prefix snapshot is taken in stream order on this thread;
+        # the worker only downloads it
+        prefix = labels[:nb].clone()
+        fut = pool.submit(lambda: self._postlude(prefix.cpu().numpy(), nb))
+        self._last_future = fut
+        return fut

@@ -1,0 +1,211 @@
+"""The port's three tile-sweep kernels against the JAX package's Pallas
+kernels (run in interpret mode, as tests/test_pallas_interpret.py runs
+them) on identical inputs and tile lists.
+
+On the CPU every wrapper takes its plain PyTorch version, so these tests
+pin the plain versions -- the oracles the CUDA kernels are held to -- to
+the reference kernels. The tests marked ``cuda`` hold the CUDA kernels to
+the plain versions on the card and skip without one.
+
+Counts, ids and labels must be exact. Distances must be bit-equal: both
+sides compute the plain fma chain acc = fma(d_k, d_k, acc) from zero.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from clustering_tpu.ops import pallas_kernels as pk
+from clustering_tpu_torch.ops import kernels, pruning
+
+RB, CB = 8, 16
+IMAX = np.iinfo(np.int32).max
+
+
+def _layout(n, d, seed, dup=0):
+    """(coords (n, d), padded coords_t (D, N_pad) with 3e38 pads); the
+    first ``dup`` frames are one repeated point."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[n // 2:] += np.float32(1.0)
+    if dup:
+        c[:dup] = c[0]
+    n_pad = -(-n // CB) * CB
+    ct = np.full((d, n_pad), np.float32(3e38), dtype=np.float32)
+    ct[:, :n] = c.T
+    return c, ct
+
+
+def _tiles(n_pad, seed, frac=0.6, upper=True):
+    """A random row-major subset of the (upper-triangular) tile grid."""
+    rng = np.random.default_rng(seed)
+    nrb, ncb = n_pad // RB, n_pad // CB
+    act = rng.random((nrb, ncb)) < frac
+    if upper:
+        act &= pruning.upper_mask(nrb, ncb, RB, CB)
+    ti, tj = np.nonzero(act)
+    return ti.astype(np.int32), tj.astype(np.int32)
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_pops_bidir_matches_pallas(d):
+    n = 200
+    _, ct = _layout(n, d, seed=d)
+    radii2 = np.asarray([0.05, 0.2, 0.6], dtype=np.float32)
+    ti, tj = _tiles(ct.shape[1], seed=10 + d)
+    rng = np.random.default_rng(d)
+    rmask = rng.integers(0, 8, size=len(ti)).astype(np.int32)
+    # one no-op pad entry, as the JAX planner emits them
+    ti = np.append(ti, ti[-1]).astype(np.int32)
+    tj = np.append(tj, -1).astype(np.int32)
+    rmask = np.append(rmask, 0).astype(np.int32)
+    want = pk._add_self_count(
+        pk.pops_tiles_sparse_bidir(ct, radii2, np.int32(n), ti, tj, rmask,
+                                   row_block=RB, col_block=CB),
+        np.int32(n))
+    before = dict(kernels.LAUNCHES)
+    got = kernels.pops_bidir(torch.from_numpy(ct), torch.from_numpy(radii2),
+                             n, torch.from_numpy(ti), torch.from_numpy(tj),
+                             torch.from_numpy(rmask), RB, CB)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())
+    # CPU tensors take the plain version: no kernel launch is counted
+    assert kernels.LAUNCHES == before
+
+
+def _nn_inputs(n, d, seed, dup):
+    c, ct = _layout(n, d, seed, dup=dup)
+    n_pad = ct.shape[1]
+    rng = np.random.default_rng(seed)
+    fe = rng.random(n).astype(np.float32)
+    fe[:dup] = np.float32(0.0)  # the duplicates hold the lowest fe
+    fe_pad = np.full(n_pad, np.inf, np.float32)
+    fe_pad[:n] = fe
+    order = rng.permutation(n).astype(np.int32)
+    oid = np.full(n_pad, IMAX, np.int32)
+    oid[:n] = order
+    return ct, fe_pad, oid
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_nn_bidir_matches_pallas(d):
+    n = 190
+    dup = 16  # frames 0..15 identical: d2 == 0 pairs are never neighbours
+    ct, fe_pad, oid = _nn_inputs(n, d, seed=30 + d, dup=dup)
+    n_pad = ct.shape[1]
+    nrb, ncb = n_pad // RB, n_pad // CB
+    rng = np.random.default_rng(40 + d)
+    act = (rng.random((nrb, ncb)) < 0.6) & pruning.upper_mask(nrb, ncb,
+                                                              RB, CB)
+    # rows 0..15 see only their own (all-duplicate) column block, and no
+    # upper tile holds that block as columns: no admissible neighbour at
+    # all -> (inf, IMAX)
+    act[:2] = False
+    act[:2, 0] = True
+    ti, tj = (a.astype(np.int32) for a in np.nonzero(act))
+    want_d, want_j = pk.nn_tiles_sparse_bidir(
+        ct, fe_pad.reshape(1, -1), oid.reshape(1, -1), np.int32(n), ti, tj,
+        row_block=RB, col_block=CB)
+    want_d, want_j = np.asarray(want_d), np.asarray(want_j)
+    keys = kernels.nn_keys_init(ct.shape[1], "cpu")
+    kernels.nn_bidir(torch.from_numpy(ct), torch.from_numpy(fe_pad),
+                     torch.from_numpy(oid), n, torch.from_numpy(ti),
+                     torch.from_numpy(tj), keys, RB, CB)
+    got_d, got_j = kernels.unpack_keys(keys)
+    # keys are indexed by original id; the Pallas output by position
+    got_d = got_d.numpy()[:, oid[:n]]
+    got_j = got_j.numpy()[:, oid[:n]]
+    np.testing.assert_array_equal(want_j[:, :n], got_j)
+    np.testing.assert_array_equal(want_d[:, :n], got_d)
+    # the duplicates (which also hold the lowest fe) have no neighbour
+    assert (got_j[:, :dup] == IMAX).all() and np.isinf(got_d[:, :dup]).all()
+    assert np.isfinite(got_d[:, dup:]).any(axis=1).all()
+
+
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_label_min_bidir_matches_pallas(d):
+    n = 210
+    _, ct = _layout(n, d, seed=50 + d)
+    n_pad = ct.shape[1]
+    rng = np.random.default_rng(d)
+    labels = np.arange(n_pad, dtype=np.int32)
+    labels[:n] = np.minimum(labels[:n], rng.integers(0, n, size=n))
+    ti, tj = _tiles(n_pad, seed=60 + d, frac=0.8)
+    dirty = (rng.random(len(ti)) < 0.7).astype(np.int32)
+    dirty[0] = 0
+    n_below, md2 = 170, np.float32(0.08)
+    row_p, col_p = pk.label_min_sparse_bidir(
+        ct, labels.reshape(1, -1), np.int32(n_below), md2, ti, tj, dirty,
+        n_pad, row_block=RB, col_block=CB)
+    want = np.minimum(labels, np.minimum(np.asarray(row_p)[0],
+                                         np.asarray(col_p)[0]))
+    got = kernels.label_min_bidir(
+        torch.from_numpy(ct), torch.from_numpy(labels), n_below, md2,
+        torch.from_numpy(ti), torch.from_numpy(tj), torch.from_numpy(dirty),
+        RB, CB)
+    np.testing.assert_array_equal(want, got.numpy())
+    assert (want != labels).any()
+
+
+def test_wrappers_refuse_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device is refused:
+    the plain version is taken only for CPU tensors."""
+    ct = torch.zeros((2, CB), device="meta")
+    ti = torch.zeros(1, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kernels.label_min_bidir(ct, torch.zeros(CB, dtype=torch.int32,
+                                                device="meta"),
+                                4, 0.1, ti, ti, ti, RB, CB)
+
+
+# -- on the card ---------------------------------------------------------------
+
+def _need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rb,cb", [(2, 8, 16), (4, 128, 4096),
+                                     (17, 32, 64)])
+def test_cuda_kernels_match_plain(d, rb, cb):
+    _need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(d)
+    n = 3 * cb + 37
+    n_pad = -(-n // cb) * cb
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[:8] = c[0]
+    ct = np.full((d, n_pad), np.float32(3e38), np.float32)
+    ct[:, :n] = c.T
+    nrb, ncb = n_pad // rb, n_pad // cb
+    act = (rng.random((nrb, ncb)) < 0.7) & pruning.upper_mask(nrb, ncb, rb,
+                                                              cb)
+    ti, tj = (torch.as_tensor(a.astype(np.int32), device=dev)
+              for a in np.nonzero(act))
+    ct_d = torch.as_tensor(ct, device=dev)
+    r2 = torch.tensor([0.01, 0.05, 0.2], device=dev)
+    rmask = torch.as_tensor(rng.integers(0, 8, size=len(ti)).astype(np.int32),
+                            device=dev)
+    kernels.reset_launches()
+    got = kernels.pops_bidir(ct_d, r2, n, ti, tj, rmask, rb, cb)
+    want = kernels.pops_bidir_plain(ct_d, r2, n, ti, tj, rmask, rb, cb)
+    assert torch.equal(got, want)
+    fe = torch.full((n_pad,), float("inf"), device=dev)
+    fe[:n] = torch.as_tensor(rng.random(n).astype(np.float32), device=dev)
+    oid = torch.full((n_pad,), IMAX, dtype=torch.int32, device=dev)
+    oid[:n] = torch.as_tensor(rng.permutation(n).astype(np.int32),
+                              device=dev)
+    k1 = kernels.nn_bidir(ct_d, fe, oid, n, ti, tj,
+                          kernels.nn_keys_init(n_pad, dev), rb, cb)
+    k2 = kernels.nn_bidir_plain(ct_d, fe, oid, n, ti, tj,
+                                kernels.nn_keys_init(n_pad, dev), rb, cb)
+    assert torch.equal(k1[:, :n], k2[:, :n])
+    labels = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    dirty = (torch.rand(len(ti), device=dev) < 0.8).to(torch.int32)
+    l1 = kernels.label_min_bidir(ct_d, labels, n - 20, 0.05, ti, tj, dirty,
+                                 rb, cb)
+    l2 = kernels.label_min_bidir_plain(ct_d, labels, n - 20, 0.05, ti, tj,
+                                       dirty, rb, cb)
+    assert torch.equal(l1, l2)
+    assert kernels.LAUNCHES == {"pops_bidir": 1, "nn_bidir": 1,
+                                "label_min_bidir": 1}
