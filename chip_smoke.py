@@ -8,17 +8,29 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. device: the card's name and power limit, torch and CUDA versions;
   2. build: compile the CUDA kernels from csrc/ with nvcc;
   3. each kernel against its plain PyTorch version on the card at
-     N = 2^16, D = 4, on the tile lists the main path plans there: counts,
-     ids and labels exact, distances bit-equal;
+     N = 2^16, D = 4, on the tile lists the two paths plan there (the
+     upper-triangular lists for the bidirectional kernels; the full
+     populations plane, the band without closure and the full screening
+     list, all columns dirty and a dirty subset, for the row-side
+     kernels): counts, ids and labels exact, distances bit-equal;
   4. the density CLI on cuda against the same CLI on cpu at N = 2^15:
      pop, fe and clust.* files identical, nn ids identical, nn distances
      bit-equal or within one unit of the last printed digit;
   5. the main path at N = 2^20, D = 4: ``density -r 0.1 -T 0.5 0.5 2.0``
      through the port's CLI, with its stage walls, the launch count of
-     every kernel (each must be > 0) and output invariants.
+     every bidirectional kernel (each must be > 0) and output invariants;
+  6. the symmetric path at N = 2^20, D = 4, r = 0.1, thresholds
+     0.5/1.0/1.5/2.0: populations -> free energies -> nearest neighbours
+     -> screening series through the engines, once with the bidirectional
+     switches on and once with them off (``POPS_BIDIR``, ``NN_BIDIR``,
+     ``BIDIR``); populations, nn ids, nn distances (bit for bit) and every
+     clustering must be identical, every row-side kernel launched in the
+     symmetric run and no bidirectional one.
 
-The line before the last holds the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}. It imports nothing of JAX.
+The line before the last holds the kernels' JSON record (launches of the
+bidirectional kernels from phase 5, of the row-side kernels from phase
+6's symmetric run); the last line is {"ok": true, "device": {...}}. It
+imports nothing of JAX.
 """
 
 import contextlib
@@ -45,7 +57,12 @@ KERNELS = {
     "pops_bidir": "clustering_tpu/ops/pallas_kernels.py:291",
     "nn_bidir": "clustering_tpu/ops/pallas_kernels.py:1091",
     "label_min_bidir": "clustering_tpu/ops/pallas_kernels.py:1383",
+    "pops_sparse": "clustering_tpu/ops/pallas_kernels.py:191",
+    "nn_sparse": "clustering_tpu/ops/pallas_kernels.py:982",
+    "label_min_sparse": "clustering_tpu/ops/pallas_kernels.py:1275",
 }
+BIDIR_KERNELS = ("pops_bidir", "nn_bidir", "label_min_bidir")
+SPARSE_KERNELS = ("pops_sparse", "nn_sparse", "label_min_sparse")
 
 
 def fail(msg):
@@ -130,6 +147,47 @@ def max_abs_err(got, want):
     return float((got.double() - want.double()).abs().max())
 
 
+def hold(torch, rec, name, what, kernel, plain, compare):
+    """Time ``kernel`` and ``plain`` (the kernel's plain version) on the
+    same inputs, compare their results with ``compare`` -> (mismatches,
+    max abs err, text), print one line and fail on any mismatch. Returns
+    the plain result."""
+    got, ms = timed(torch, kernel)
+    want, plain_ms = timed(torch, plain)
+    bad, err, text = compare(got, want)
+    print(f"[kernels] {name}: {what}, {text}, kernel {ms:.3f} ms, plain"
+          f" {plain_ms:.3f} ms")
+    if bad:
+        fail(f"{name} disagrees with its plain version")
+    rec.setdefault(name, (err, ms, plain_ms))
+    return want
+
+
+def exact(unit):
+    def compare(got, want):
+        bad = int((got != want).sum())
+        return bad, max_abs_err(got, want), f"{bad} {unit} mismatches"
+    return compare
+
+
+def keys_equal(torch, n):
+    """Compare two NN key buffers over the first ``n`` original ids: ids
+    equal and distances bit-equal."""
+    from clustering_tpu_torch.ops import kernels
+
+    def compare(got, want):
+        gd, gj = kernels.unpack_keys(got[:, :n])
+        wd, wj = kernels.unpack_keys(want[:, :n])
+        bad_j = int((gj != wj).sum())
+        bad_d = int((gd.view(torch.int32) != wd.view(torch.int32)).sum())
+        fin = torch.isfinite(gd) & torch.isfinite(wd)
+        err = max_abs_err(gd[fin], wd[fin])
+        return bad_j + bad_d, err, (
+            f"{bad_j} id mismatches, {bad_d} distances not bit-equal (max"
+            f" abs err {err})")
+    return compare
+
+
 def phase_kernels(torch):
     from clustering_tpu_torch.ops import kernels
     from clustering_tpu_torch.ops.density import free_energies
@@ -145,53 +203,54 @@ def phase_kernels(torch):
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
-    # populations at the main path's radius
-    name, ti, tj, rmask = eng.pops_plan([RADIUS])
-    ct = eng.coords_t(name)
+    # populations at the main path's radius: the upper-triangular plan,
+    # then the full plane the symmetric path plans
     r2 = put(np.asarray([np.float32(RADIUS) ** 2], np.float32))
-    args = (ct, r2, n, put(ti), put(tj), put(rmask), rb, cb)
-    got, ms = timed(torch, lambda: kernels.pops_bidir(*args))
-    want, plain_ms = timed(torch, lambda: kernels.pops_bidir_plain(*args))
-    bad = int((got != want).sum())
-    err = max_abs_err(got, want)
-    print(f"[kernels] pops_bidir: {len(ti)} tiles, {bad} count mismatches,"
-          f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if bad:
-        fail("pops_bidir disagrees with its plain version")
-    rec["pops_bidir"] = (err, ms, plain_ms)
+    name, ti, tj, rmask = eng.pops_plan([RADIUS], bidir=True)
+    ct = eng.coords_t(name)
+    args = (r2, n, put(ti), put(tj), put(rmask), rb, cb)
+    want = hold(torch, rec, "pops_bidir", f"{len(ti)} tiles",
+                lambda: kernels.pops_bidir(ct, *args),
+                lambda: kernels.pops_bidir_plain(ct, *args),
+                exact("count"))
+    name_s, ti_s, tj_s, rm_s = eng.pops_plan([RADIUS], bidir=False)
+    ct_s = eng.coords_t(name_s)
+    args = (ct_s, ct_s, r2, n, put(ti_s), put(tj_s), put(rm_s), rb, cb)
+    hold(torch, rec, "pops_sparse", f"{len(ti_s)} tiles",
+         lambda: kernels.pops_sparse(*args),
+         lambda: kernels.pops_sparse_plain(*args), exact("count"))
 
-    # nearest neighbours: the band pass's tile list in Morton order
+    # nearest neighbours: the band pass's tile lists in Morton order, the
+    # upper-triangular closure and the band itself
     counts = want[0, :n].cpu().numpy()
     order, _ = eng._padded(name)
     pops = np.empty(n, np.int64)
     pops[order] = counts
     fe = free_energies(pops)
-    _, band_eff = eng.nn_band_mask()
-    bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band_eff))
+    band, band_eff = eng.nn_band_mask(bidir=True)
     fe_l = eng._fe_layout(fe, "morton")
     oid = eng.oid("morton")
     ct_m = eng.coords_t("morton")
+    bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band_eff))
 
-    def nn_run(fn):
-        return fn(ct_m, fe_l, oid, n, bti, btj,
+    def nn_run(fn, *lead):
+        return fn(*lead, ct_m, fe_l, oid, n, bti, btj,
                   kernels.nn_keys_init(eng.n_pad, dev), rb, cb)
 
-    got, ms = timed(torch, lambda: nn_run(kernels.nn_bidir))
-    want, plain_ms = timed(torch, lambda: nn_run(kernels.nn_bidir_plain))
-    gd, gj = kernels.unpack_keys(got[:, :n])
-    wd, wj = kernels.unpack_keys(want[:, :n])
-    bad_j = int((gj != wj).sum())
-    bad_d = int((gd.view(torch.int32) != wd.view(torch.int32)).sum())
-    fin = torch.isfinite(gd) & torch.isfinite(wd)
-    err = max_abs_err(gd[fin], wd[fin])
-    print(f"[kernels] nn_bidir: {len(bti)} tiles, {bad_j} id mismatches,"
-          f" {bad_d} distances not bit-equal (max abs err {err}),"
-          f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if bad_j or bad_d:
-        fail("nn_bidir disagrees with its plain version")
-    rec["nn_bidir"] = (err, ms, plain_ms)
+    want = hold(torch, rec, "nn_bidir", f"{len(bti)} tiles",
+                lambda: nn_run(kernels.nn_bidir),
+                lambda: nn_run(kernels.nn_bidir_plain), keys_equal(torch, n))
+    bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band))
+    rows = (ct_m, fe_l, oid)
+    hold(torch, rec, "nn_sparse", f"{len(bti)} tiles",
+         lambda: nn_run(kernels.nn_sparse, *rows),
+         lambda: nn_run(kernels.nn_sparse_plain, *rows),
+         keys_equal(torch, n))
 
-    # screening: the first sweep of the series' last threshold
+    # screening: the first sweep of the series' last threshold, over the
+    # upper-triangular list and over the full list (every column block
+    # dirty, then every third)
+    wd, _ = kernels.unpack_keys(want[:, :n])
     nh_d = wd[0].cpu().numpy()
     nh_d = np.where(np.isfinite(nh_d), nh_d, 0.0)
     md2 = np.float32(4.0 * compute_sigma2(nh_d))
@@ -199,21 +258,29 @@ def phase_kernels(torch):
         coords, fe, [np.float32(t) for t in THRESHOLDS], device=dev)
     seng = series.engine
     nb = int(series.n_below_per_band[-1])
-    tiles = seng.tile_list(0, nb, md2)
-    sti, stj = put(tiles[0]), put(tiles[1])
     labels = torch.arange(seng.n_pad, dtype=torch.int32, device=dev)
+    tiles = seng.tile_list(0, nb, md2, triangular=True)
+    sti, stj = put(tiles[0]), put(tiles[1])
     dirty = torch.ones(len(tiles[0]), dtype=torch.int32, device=dev)
     largs = (seng.coords_t, labels, nb, md2, sti, stj, dirty, rb, cb)
-    got, ms = timed(torch, lambda: kernels.label_min_bidir(*largs))
-    want, plain_ms = timed(torch,
-                           lambda: kernels.label_min_bidir_plain(*largs))
-    bad = int((got != want).sum())
-    err = max_abs_err(got, want)
-    print(f"[kernels] label_min_bidir: {len(tiles[0])} tiles, {bad} label"
-          f" mismatches, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    if bad:
-        fail("label_min_bidir disagrees with its plain version")
-    rec["label_min_bidir"] = (err, ms, plain_ms)
+    hold(torch, rec, "label_min_bidir", f"{len(tiles[0])} tiles",
+         lambda: kernels.label_min_bidir(*largs),
+         lambda: kernels.label_min_bidir_plain(*largs),
+         exact("label"))
+    tiles = seng.tile_list(0, nb, md2, triangular=False)
+    sti, stj = put(tiles[0]), put(tiles[1])
+    ncb = seng.n_pad // cb
+    for what, dirty in (
+            ("all column blocks dirty",
+             torch.ones(ncb, dtype=torch.int32, device=dev)),
+            ("every third column block dirty",
+             (torch.arange(ncb, device=dev) % 3 == 0).to(torch.int32))):
+        largs = (seng.coords_t, seng.coords_t, labels, nb, md2, sti, stj, 0,
+                 dirty, rb, cb)
+        hold(torch, rec, "label_min_sparse", f"{len(tiles[0])} tiles, {what}",
+             lambda: kernels.label_min_sparse(*largs),
+             lambda: kernels.label_min_sparse_plain(*largs),
+             exact("proposal"))
     return rec
 
 
@@ -299,8 +366,8 @@ def phase_main(torch, tmp):
     print(f"[main] N={N_MAIN} D={DIM}: wall {wall:.3f}s, stages "
           + json.dumps({k: walls[k] for k in walls}))
     print(f"[main] launches {json.dumps(launches)}")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in BIDIR_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path")
     d = os.path.join(tmp, "main")
     pops = np.loadtxt(os.path.join(d, "pop"), dtype=np.int64)
@@ -334,6 +401,97 @@ def phase_main(torch, tmp):
     return launches
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+def run_engines(torch, coords):
+    """populations -> free energies -> nearest neighbours -> screening
+    series through the port's engines on the card, as the density CLI runs
+    them. Returns (pops, nn, clusterings, stage walls, stage modes)."""
+    from clustering_tpu_torch.ops.density import free_energies
+    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.ops.neighbors import compute_sigma2
+    from clustering_tpu_torch.ops.screening import ThresholdSeriesScreener
+    walls, modes = {}, {}
+
+    def stage(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    eng = DensityEngine(coords, device="cuda")
+    pops = stage("populations", lambda: eng.populations([RADIUS])[RADIUS])
+    modes["populations"] = eng.last_stats["populations"]["mode"]
+    fe = free_energies(pops)
+    nn = stage("nearest neighbors", lambda: eng.nearest_neighbors(fe))
+    modes["nearest neighbors"] = eng.last_stats["nn"]["mode"]
+    md2 = np.float32(4.0 * compute_sigma2(nn[1]))
+    thresholds = [np.float32(t) for t in THRESHOLDS]
+    series = stage("screening setup", lambda: ThresholdSeriesScreener(
+        coords, fe, thresholds, device="cuda", hd_neighbors=(nn[2], nn[3])))
+    clust, prev = [], None
+    for k, t in enumerate(THRESHOLDS):
+        prev = stage(f"screening {t}", series.step, prev, k, md2)
+        clust.append(prev)
+        modes[f"screening {t}"] = series.engine.last_stats["mode"]
+    return pops, nn, clust, walls, modes
+
+
+def phase_symmetric(torch):
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.ops.screening import ScreeningEngine
+    coords = synthetic_fel(N_MAIN, DIM, seed=0)
+    saved = (DensityEngine.POPS_BIDIR, DensityEngine.NN_BIDIR,
+             ScreeningEngine.BIDIR)
+    runs = {}
+    try:
+        for mode, on in (("bidir", True), ("symmetric", False)):
+            DensityEngine.POPS_BIDIR = DensityEngine.NN_BIDIR = on
+            ScreeningEngine.BIDIR = on
+            kernels.reset_launches()
+            out = run_engines(torch, coords)
+            runs[mode] = out + (dict(kernels.LAUNCHES),)
+    finally:
+        (DensityEngine.POPS_BIDIR, DensityEngine.NN_BIDIR,
+         ScreeningEngine.BIDIR) = saved
+    for mode, (_, _, _, walls, modes, launches) in runs.items():
+        print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
+              + json.dumps(walls))
+        print(f"[symmetric] {mode} run: modes {json.dumps(modes)}, launches"
+              f" {json.dumps(launches)}")
+        if set(modes.values()) != {mode}:
+            fail(f"the {mode} run took another route: {modes}")
+        on, off = ((BIDIR_KERNELS, SPARSE_KERNELS) if mode == "bidir"
+                   else (SPARSE_KERNELS, BIDIR_KERNELS))
+        for name in on:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched by the {mode} run")
+        for name in off:
+            if launches[name] != 0:
+                fail(f"kernel {name} was launched by the {mode} run")
+    pops_b, nn_b, clust_b, _, _, _ = runs["bidir"]
+    pops_s, nn_s, clust_s, _, _, launches = runs["symmetric"]
+    if not np.array_equal(pops_b, pops_s):
+        fail("populations differ between the bidir and symmetric paths")
+    for i in (0, 2):
+        if not np.array_equal(nn_b[i], nn_s[i]):
+            fail("nn ids differ between the bidir and symmetric paths")
+    for i in (1, 3):
+        if not np.array_equal(np.asarray(nn_b[i], np.float32).view(np.int32),
+                              np.asarray(nn_s[i], np.float32).view(np.int32)):
+            fail("nn distances differ between the bidir and symmetric paths")
+    for t, a, b in zip(THRESHOLDS, clust_b, clust_s):
+        if not np.array_equal(a, b):
+            fail(f"clustering at {t} differs between the bidir and"
+                 " symmetric paths")
+    print(f"[symmetric] N={N_MAIN}: populations, nn ids, nn distances (bit"
+          f" for bit) and {len(THRESHOLDS)} clusterings identical;"
+          f" {int(clust_s[-1].max())} states at {THRESHOLDS[-1]}")
+    return launches
+
+
 def main():
     torch = phase_device()
     phase_build()
@@ -341,6 +499,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice(tmp)
         launches = phase_main(torch, tmp)
+    sym_launches = phase_symmetric(torch)
+    for name in SPARSE_KERNELS:
+        launches[name] = sym_launches[name]
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"clustering_tpu_torch/csrc/{name}.cu",

@@ -19,7 +19,6 @@ import numpy as np
 
 from .ops import density as dops
 from .ops import neighbors as nops
-from .ops.engine import DensityEngine
 from .ops.screening import ThresholdSeriesScreener
 
 Neighborhoods = namedtuple(
@@ -30,9 +29,9 @@ def populations(coords, radius, device="cuda"):
     """Per-frame neighbour counts inside the hypersphere ``radius``
     (self-inclusive); an array for a scalar radius, else a dict radius ->
     array."""
-    engine = DensityEngine(np.asarray(coords, np.float32), device=device)
     radii = np.atleast_1d(np.asarray(radius, dtype=float)).tolist()
-    out = engine.populations(radii)
+    out = dops.populations(np.asarray(coords, np.float32), radii,
+                           device=device)
     if np.ndim(radius) == 0:
         return out[radii[0]]
     return out
@@ -45,9 +44,9 @@ def free_energies(pops):
 
 def nearest_neighbors(coords, free_energy, device="cuda") -> Neighborhoods:
     """Joint nearest-neighbour and nearest-lower-free-energy search."""
-    engine = DensityEngine(np.asarray(coords, np.float32), device=device)
-    return Neighborhoods(*engine.nearest_neighbors(
-        np.asarray(free_energy, np.float32)))
+    return Neighborhoods(*nops.nearest_neighbors(
+        np.asarray(coords, np.float32), np.asarray(free_energy, np.float32),
+        device=device))
 
 
 def screening_series(coords, free_energy, nh_dist, thresholds,

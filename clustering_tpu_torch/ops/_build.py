@@ -3,10 +3,13 @@
 The sources in ``clustering_tpu_torch/csrc`` have a plain C interface, so
 they compile in seconds without PyTorch's headers. The shared library goes
 to ``build/torch_kernels/`` at the repository root, named by a hash of the
-sources, and is built at first use in a process::
+sources, and is built at first use in a process: one nvcc per source, all
+started together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/torch_kernels/libck_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <name>.o csrc/<name>.cu      # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \
+         -o build/torch_kernels/libck_<hash>.so *.o
 
 Every pointer and the stream cross as ``ctypes.c_void_p``; each entry point
 returns the ``cudaError_t`` of its launch.
@@ -25,8 +28,10 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                              "-c"]
+LINK_FLAGS = ARCH_FLAGS + ["-shared"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +51,18 @@ SIGNATURES = {
     # n_tiles, row_block, col_block, prop, stream
     "ck_label_min_bidir": [_P, _LL, _I, _P, _I, _F, _P, _P, _P, _LL, _I,
                            _I, _P, _P],
+    # rows_t, r_pad, cols_t, n_pad, d, radii2, n_radii, n_valid, ti, tj,
+    # rmask, n_tiles, row_block, col_block, out, stream
+    "ck_pops_sparse": [_P, _LL, _P, _LL, _I, _P, _I, _I, _P, _P, _P, _LL,
+                       _I, _I, _P, _P],
+    # rows_t, r_pad, fe_rows, oid_rows, cols_t, n_pad, d, fe_cols, oid,
+    # n_valid, ti, tj, n_tiles, row_block, col_block, keys, stream
+    "ck_nn_sparse": [_P, _LL, _P, _P, _P, _LL, _I, _P, _P, _I, _P, _P, _LL,
+                     _I, _I, _P, _P],
+    # rows_t, r_pad, cols_t, n_pad, d, labels, n_below, max_dist2, ti, tj,
+    # row_block_offset, dirty, n_tiles, row_block, col_block, prop, stream
+    "ck_label_min_sparse": [_P, _LL, _P, _LL, _I, _P, _I, _F, _P, _P, _I,
+                            _P, _LL, _I, _I, _P, _P],
 }
 
 _lock = threading.Lock()
@@ -72,7 +89,7 @@ def library_path():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"libck_{h.hexdigest()[:16]}.so")
 
 
@@ -83,16 +100,28 @@ def build():
     if os.path.exists(path):
         return path, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     cu = [p for p in sources() if p.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-I", CSRC_DIR, "-o", tmp] + cu
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-    os.replace(tmp, path)
-    return path, proc.stdout + proc.stderr
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, os.path.basename(p)[:-3] + ".o")
+                for p in cu]
+        procs = [subprocess.Popen(
+            [nvcc] + COMPILE_FLAGS + ["-I", CSRC_DIR, "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [src for src, p in zip(cu, procs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n"
+                               + "".join(logs))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc] + LINK_FLAGS + ["-o", lib] + objs,
+                              capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + logs[-1])
+        os.replace(lib, path)
+    return path, "".join(logs)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,15 +1,27 @@
 """Per-frame neighbour populations and free energies.
 
-Counterpart of ``clustering_tpu/ops/density.py``: ``free_energies`` is a
-copy (fp32 division and log, like the reference), ``populations_dense`` the
-dense oracle of the tile-sweep path (the counterpart of ``counts_rows``):
-a frame j counts toward pop_i iff d2(i, j) <= r^2, j == i included.
+Counterpart of ``clustering_tpu/ops/density.py``: ``populations`` is the
+library entry point on the tile-sweep path (the JAX one with
+``backend="pallas"``), ``free_energies`` a copy (fp32 division and log,
+like the reference), ``populations_dense`` the dense oracle of the
+tile-sweep path (the counterpart of ``counts_rows``): a frame j counts
+toward pop_i iff d2(i, j) <= r^2, j == i included.
 """
 
 import numpy as np
 import torch
 
+from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, DensityEngine
 from .pairwise import sq_dists
+
+
+def populations(coords, radii, row_block=DEFAULT_ROW_BLOCK,
+                col_block=DEFAULT_COL_BLOCK, device="cuda"):
+    """Neighbour populations for each radius: dict radius -> (N,) int64
+    (self included), through :class:`DensityEngine` on ``device``."""
+    engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
+                           device=device)
+    return engine.populations(radii)
 
 
 def free_energies(pops) -> np.ndarray:

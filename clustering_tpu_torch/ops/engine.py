@@ -1,10 +1,12 @@
 """Device-resident driver for the density pipeline's O(N^2) stages.
 
-Counterpart of ``clustering_tpu/ops/engine.py`` on its default single-chip
-path: host-planned, upper-triangular (bidirectional) tile sweeps over
-bbox-pruned tile lists. The frame matrix is uploaded once per layout; the
-bbox distances are computed on the device, thresholded there, and the
-bool planes come to the host, where numpy plans the flat tile lists.
+Counterpart of ``clustering_tpu/ops/engine.py`` on its single-chip paths:
+host-planned tile sweeps over bbox-pruned tile lists, either
+upper-triangular (bidirectional kernels: each unordered pair evaluated
+once, serving both frames) or symmetric (row-side kernels over both
+orientations). The frame matrix is uploaded once per layout; the bbox
+distances are computed on the device, thresholded there, and the bool
+planes come to the host, where numpy plans the flat tile lists.
 """
 
 import time
@@ -38,19 +40,31 @@ def resolve_device(device):
 class DensityEngine:
     """Populations and nearest neighbours of one frame matrix on ``device``.
 
-    ``col_block`` must be a multiple of ``row_block`` (the bidirectional
-    closure works on that grid)."""
+    Any (row_block, col_block) pair is served: N is padded to their least
+    common multiple. Each stage sweeps bidirectionally when its switch is
+    on and its grid allows it, else symmetrically (same results):
+
+      populations: ``POPS_BIDIR``;
+      nearest neighbours: ``NN_BIDIR`` and col_block % row_block == 0
+      (the closure of the band and phase-2 masks works on that grid).
+
+    The switches are the counterparts of the JAX engine's VMEM caps
+    (``POPS_BIDIR_SCRATCH_CAP``, ``NN_BIDIR_SCRATCH_CAP``), which 0 turns
+    off; the CUDA kernels fold through global atomics and have no such
+    limit."""
+
+    POPS_BIDIR = True
+    NN_BIDIR = True
 
     def __init__(self, coords, row_block=DEFAULT_ROW_BLOCK,
                  col_block=DEFAULT_COL_BLOCK, device="cuda"):
-        if col_block % row_block != 0:
-            raise ValueError("col_block must be a multiple of row_block")
         self.device = resolve_device(device)
         self.row_block = row_block
         self.col_block = col_block
         self.coords = np.ascontiguousarray(coords, dtype=np.float32)
         self.n, self.d = self.coords.shape
-        self.n_pad = -(-self.n // col_block) * col_block
+        block = int(np.lcm(row_block, col_block))
+        self.n_pad = -(-self.n // block) * block
         self._orders = {}   # name -> (order or None, padded host (N_pad, D))
         self._dev = {}      # cached device tensors
         self.last_stats = {}
@@ -124,17 +138,22 @@ class DensityEngine:
 
     # -- populations -----------------------------------------------------------
 
-    def pops_plan(self, radii):
-        """Layout name, upper-triangular tile list and per-tile radius
-        masks of a populations sweep: (name, ti, tj, rmask) numpy int32."""
+    def pops_plan(self, radii, bidir=True):
+        """Layout name, tile list and per-tile radius masks of a
+        populations sweep: (name, ti, tj, rmask) numpy int32. The list is
+        the active plane at the largest radius, restricted to the upper
+        triangle when ``bidir``."""
         nrb = self.n_pad // self.row_block
         ncb = self.n_pad // self.col_block
-        upper = pruning.upper_mask(nrb, ncb, self.row_block, self.col_block)
         sq = [np.float32(r) * np.float32(r) for r in radii]
         r_max2 = np.float32(max(radii)) * np.float32(max(radii))
         name = self._best_sort(r_max2)
         planes = pruning.threshold_planes(self.d2b(name), [r_max2] + sq)
-        tiles = pruning.tile_list(planes[0] & upper)
+        active = planes[0]
+        if bidir:
+            active = active & pruning.upper_mask(nrb, ncb, self.row_block,
+                                                 self.col_block)
+        tiles = pruning.tile_list(active)
         if tiles is None:
             empty = np.zeros(0, np.int32)
             return name, empty, empty, empty
@@ -145,19 +164,27 @@ class DensityEngine:
         return name, ti, tj, rmask
 
     def populations(self, radii):
-        """dict radius -> (N,) int64 populations (self included)."""
+        """dict radius -> (N,) int64 populations (self included); the
+        sweep's mode ("bidir" or "symmetric") is in
+        ``last_stats["populations"]``."""
         t0 = time.perf_counter()
         radii = list(radii)
-        name, ti, tj, rmask = self.pops_plan(radii)
+        bidir = self.POPS_BIDIR
+        name, ti, tj, rmask = self.pops_plan(radii, bidir)
         radii2 = self._put(np.asarray(
             [np.float32(r) * np.float32(r) for r in radii], np.float32))
         stats = {"computed_tiles": int(len(ti)),
+                 "mode": "bidir" if bidir else "symmetric",
                  "t_plan": time.perf_counter() - t0}
         self._log_stats("pops", stats["computed_tiles"])
         t0 = time.perf_counter()
-        counts = kernels.pops_bidir(
-            self.coords_t(name), radii2, self.n, self._put(ti),
-            self._put(tj), self._put(rmask), self.row_block, self.col_block)
+        ct = self.coords_t(name)
+        args = (radii2, self.n, self._put(ti), self._put(tj),
+                self._put(rmask), self.row_block, self.col_block)
+        if bidir:
+            counts = kernels.pops_bidir(ct, *args)
+        else:
+            counts = kernels.pops_sparse(ct, ct, *args)
         counts = counts[:, :self.n].cpu().numpy()
         stats["t_sweep"] = time.perf_counter() - t0
         self.last_stats["populations"] = stats
@@ -174,25 +201,36 @@ class DensityEngine:
         fe_pad[:self.n] = fe[order]
         return self._put(fe_pad)
 
-    def _nn_sweep(self, name, fe, active, keys):
-        """Sweep the tiles of ``active`` (an upper-triangular closure) in
-        layout ``name``, folding into the id-keyed ``keys``; returns the
-        number of tiles swept."""
+    def _nn_bidir_ok(self):
+        return self.NN_BIDIR and self.col_block % self.row_block == 0
+
+    def _nn_sweep(self, name, fe, active, keys, bidir):
+        """Sweep the tiles of ``active`` in layout ``name`` -- an
+        upper-triangular closure swept bidirectionally, or any mask swept
+        row-side -- folding into the id-keyed ``keys``; returns the number
+        of tiles swept."""
         tiles = pruning.tile_list(active)
         if tiles is None:
             return 0
-        kernels.nn_bidir(self.coords_t(name), self._fe_layout(fe, name),
-                         self.oid(name), self.n, self._put(tiles[0]),
-                         self._put(tiles[1]), keys, self.row_block,
-                         self.col_block)
+        ct, fe_l, oid = (self.coords_t(name), self._fe_layout(fe, name),
+                         self.oid(name))
+        ti, tj = self._put(tiles[0]), self._put(tiles[1])
+        if bidir:
+            kernels.nn_bidir(ct, fe_l, oid, self.n, ti, tj, keys,
+                             self.row_block, self.col_block)
+        else:
+            kernels.nn_sparse(ct, fe_l, oid, ct, fe_l, oid, self.n, ti, tj,
+                              keys, self.row_block, self.col_block)
         return len(tiles[0])
 
-    def nn_band_mask(self):
-        """The band pass's tile mask and its upper-triangular closure."""
+    def nn_band_mask(self, bidir=True):
+        """The band pass's tile mask and the mask it sweeps: its
+        upper-triangular closure when ``bidir``, else the band itself."""
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
         band = pruning.band_mask(nrb, ncb, rb, cb, NN_BAND_BLOCKS * cb)
-        return band, pruning.bidir_closure(band, rb, cb)
+        return band, (pruning.bidir_closure(band, rb, cb) if bidir
+                      else band)
 
     def nearest_neighbors(self, free_energy):
         """Joint NN / lower-fe NN search with two-phase exact pruning:
@@ -211,13 +249,14 @@ class DensityEngine:
         fe = np.asarray(free_energy, dtype=np.float32)
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
-        stats = {"band_tiles": 0}
+        bidir = self._nn_bidir_ok()
+        stats = {"band_tiles": 0, "mode": "bidir" if bidir else "symmetric"}
         t0 = time.perf_counter()
         keys = kernels.nn_keys_init(self.n_pad, self.device)
         if ncb > 2 * NN_BAND_BLOCKS:
-            band_active, band_eff = self.nn_band_mask()
+            band_active, band_eff = self.nn_band_mask(bidir)
             stats["band_tiles"] = self._nn_sweep(NN_BAND_ORDER, fe, band_eff,
-                                                 keys)
+                                                 keys, bidir)
             # per-frame bound: the larger of the two band distances
             d_band, _ = kernels.unpack_keys(keys[:, :self.n])
             ub_oid = d_band.amax(dim=0)
@@ -238,13 +277,13 @@ class DensityEngine:
             stats["order"] = name
             stats["t_band"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            active = pruning.bidir_closure(active, rb, cb)
         else:
             # too few column blocks for a band to prune anything
             name = NN_BAND_ORDER
-            active = pruning.bidir_closure(np.ones((nrb, ncb), dtype=bool),
-                                           rb, cb)
-        stats["phase2_tiles"] = self._nn_sweep(name, fe, active, keys)
+            active = np.ones((nrb, ncb), dtype=bool)
+        if bidir:
+            active = pruning.bidir_closure(active, rb, cb)
+        stats["phase2_tiles"] = self._nn_sweep(name, fe, active, keys, bidir)
         d2, ids = kernels.unpack_keys(keys[:, :self.n])
         absent = ~(d2 < float("inf"))
         ids = torch.where(absent, 0, ids)

@@ -1,5 +1,13 @@
-"""The three pairwise tile-sweep kernels: CUDA wrappers, plain versions and
+"""The pairwise tile-sweep kernels: CUDA wrappers, plain versions and
 launch counts.
+
+Two families: the bidirectional kernels (``*_bidir``) sweep an
+upper-triangular tile list and serve both frames of every pair; the
+symmetric, row-side kernels (``*_sparse``) serve only the row frame, so
+their tile lists hold both orientations. The row-side kernels take the
+cross form of the JAX package: a row matrix ``rows_t`` (D, R_pad) apart
+from the column matrix ``cols_t`` (D, N_pad); the single-device path
+passes one matrix twice.
 
 Each wrapper takes its plain PyTorch version only because its tensors lie
 on the CPU; for CUDA tensors it launches the hand-written kernel from
@@ -8,7 +16,7 @@ plain version has the wrapper's signature and runs on any device, so the
 card can hold each kernel against it.
 
 Tile lists are flat row-major int32 (ti, tj) pairs over the
-(row_block x col_block) grid of a (D, N_pad) float32 coordinate matrix
+(row_block x col_block) grid of (D, N_pad) float32 coordinate matrices
 whose pads sit at 3e38.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper (plain calls do
@@ -28,7 +36,8 @@ IMAX = int(np.iinfo(np.int32).max)
 KEY_NONE = (0x7F800000 << 32) | IMAX
 MAX_RADII_PER_LAUNCH = 8
 
-LAUNCHES = {"pops_bidir": 0, "nn_bidir": 0, "label_min_bidir": 0}
+LAUNCHES = {"pops_bidir": 0, "nn_bidir": 0, "label_min_bidir": 0,
+            "pops_sparse": 0, "nn_sparse": 0, "label_min_sparse": 0}
 
 
 def reset_launches():
@@ -52,9 +61,9 @@ def _batches(ti, tj, row_block, col_block, *extra):
         yield (rows, cols) + tuple(e[lo:lo + per] for e in extra)
 
 
-def _tile_d2(coords_t, rows, cols):
-    x = coords_t[:, rows].permute(1, 2, 0)
-    y = coords_t[:, cols].permute(1, 2, 0)
+def _tile_d2(rows_t, rows, cols_t, cols):
+    x = rows_t[:, rows].permute(1, 2, 0)
+    y = cols_t[:, cols].permute(1, 2, 0)
     return sq_dists(x, y)
 
 
@@ -69,10 +78,11 @@ def _check(cond, msg):
 
 def _check_cuda(coords_t, tensors, ints):
     """Device, dtype, shape and contiguity checks before a launch."""
-    _check(coords_t.device.type == "cuda", "coords_t must be a CUDA tensor")
+    _check(coords_t.device.type == "cuda",
+           "the coordinates must be a CUDA tensor")
     _check(coords_t.dtype == torch.float32 and coords_t.dim() == 2
            and coords_t.is_contiguous(),
-           "coords_t must be a contiguous (D, N_pad) float32 tensor")
+           "the coordinates must be a contiguous (D, N_pad) float32 tensor")
     for name, t, dtype, shape in tensors:
         _check(t.device == coords_t.device,
                f"{name} must be on {coords_t.device}")
@@ -98,10 +108,11 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _grid(coords_t, row_block, col_block):
-    n_pad = coords_t.shape[1]
-    _check(n_pad % row_block == 0 and n_pad % col_block == 0,
-           "N_pad must be a multiple of row_block and col_block")
+def _grid(rows_t, cols_t, row_block, col_block):
+    _check(rows_t.shape[1] % row_block == 0,
+           "the row count must be a multiple of row_block")
+    _check(cols_t.shape[1] % col_block == 0,
+           "the column count must be a multiple of col_block")
     _check(1 <= row_block <= 1024, "row_block must be in [1, 1024]")
 
 
@@ -117,7 +128,7 @@ def pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
     keep = (tj >= 0) & (rmask != 0)
     ti, tj, rmask = ti[keep], tj[keep], rmask[keep]
     for rows, cols, rm in _batches(ti, tj, row_block, col_block, rmask):
-        d2 = _tile_d2(coords_t, rows, cols)
+        d2 = _tile_d2(coords_t, rows, coords_t, cols)
         base = ((cols[:, None, :] > rows[:, :, None])
                 & (cols[:, None, :] < n_valid))
         for r in range(n_radii):
@@ -151,7 +162,7 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
         ("ti", ti, torch.int32, (n_tiles,)),
         ("tj", tj, torch.int32, (n_tiles,)),
         ("rmask", rmask, torch.int32, (n_tiles,))], [("n_valid", n_valid)])
-    _grid(coords_t, row_block, col_block)
+    _grid(coords_t, coords_t, row_block, col_block)
     _check(1 <= n_radii <= 31, "1 to 31 radii are supported")
     out = torch.zeros((n_radii, n_pad), dtype=torch.int32,
                       device=coords_t.device)
@@ -168,6 +179,66 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
                  _ptr(out[g:]), stream)
     self_cnt = (torch.arange(n_pad, device=coords_t.device) < n_valid)
     return out + self_cnt.to(torch.int32)[None, :]
+
+def pops_sparse_plain(rows_t, cols_t, radii2, n_valid, ti, tj, rmask,
+                      row_block, col_block):
+    """Plain version of :func:`pops_sparse`."""
+    n_radii = radii2.shape[0]
+    out = torch.zeros((n_radii, rows_t.shape[1]), dtype=torch.int32,
+                      device=rows_t.device)
+    keep = (tj >= 0) & (rmask != 0)
+    for rows, cols, rm in _batches(ti[keep], tj[keep], row_block, col_block,
+                                   rmask[keep]):
+        d2 = _tile_d2(rows_t, rows, cols_t, cols)
+        valid = (cols < n_valid)[:, None, :]
+        for r in range(n_radii):
+            bit = ((rm >> r) & 1).bool()[:, None, None]
+            w = valid & bit & (d2 <= radii2[r])
+            out[r].index_add_(0, rows.reshape(-1),
+                              w.sum(dim=2, dtype=torch.int32).reshape(-1))
+    return out
+
+
+def pops_sparse(rows_t, cols_t, radii2, n_valid, ti, tj, rmask, row_block,
+                col_block):
+    """Row-side multi-radius population counts (replaces
+    ``_pops_sparse_kernel``), for tile lists that hold both orientations.
+
+    Each pair of a listed tile with col < n_valid, d2 <= radii2[r] and bit
+    r of the tile's ``rmask`` set adds 1 to the ROW frame only. The self
+    pair (d2 = 0) counts, so there is no diagonal +1. Entries with tj < 0
+    or rmask 0 are no-ops; counts are not idempotent, so the list holds
+    each tile at most once. Returns (R, R_pad) int32 counts at the row
+    positions of ``rows_t``."""
+    if rows_t.device.type == "cpu":
+        return pops_sparse_plain(rows_t, cols_t, radii2, n_valid, ti, tj,
+                                 rmask, row_block, col_block)
+    n_dim, r_pad = rows_t.shape
+    n_pad = cols_t.shape[1]
+    n_radii = radii2.shape[0]
+    n_tiles = ti.shape[0]
+    _check_cuda(rows_t, [
+        ("cols_t", cols_t, torch.float32, (n_dim, n_pad)),
+        ("radii2", radii2, torch.float32, (n_radii,)),
+        ("ti", ti, torch.int32, (n_tiles,)),
+        ("tj", tj, torch.int32, (n_tiles,)),
+        ("rmask", rmask, torch.int32, (n_tiles,))], [("n_valid", n_valid)])
+    _grid(rows_t, cols_t, row_block, col_block)
+    _check(1 <= n_radii <= 31, "1 to 31 radii are supported")
+    out = torch.zeros((n_radii, r_pad), dtype=torch.int32,
+                      device=rows_t.device)
+    if n_tiles == 0:
+        return out
+    with torch.cuda.device(rows_t.device):
+        stream = _stream(rows_t.device)
+        for g in range(0, n_radii, MAX_RADII_PER_LAUNCH):
+            n_g = min(MAX_RADII_PER_LAUNCH, n_radii - g)
+            rm_g = ((rmask >> g) & ((1 << n_g) - 1)).contiguous()
+            _run("ck_pops_sparse", "pops_sparse", _ptr(rows_t), r_pad,
+                 _ptr(cols_t), n_pad, n_dim, _ptr(radii2[g:]), n_g,
+                 int(n_valid), _ptr(ti), _ptr(tj), _ptr(rm_g), n_tiles,
+                 row_block, col_block, _ptr(out[g:]), stream)
+    return out
 
 
 # -- nearest neighbours --------------------------------------------------------
@@ -193,7 +264,7 @@ def nn_bidir_plain(coords_t, fe, oid, n_valid, ti, tj, keys, row_block,
     slot = torch.where(pos < n_valid, oid.long(), pos)
     inf = torch.tensor(float("inf"), device=coords_t.device)
     for rows, cols in _batches(ti, tj, row_block, col_block):
-        d2 = _tile_d2(coords_t, rows, cols).contiguous()
+        d2 = _tile_d2(coords_t, rows, coords_t, cols).contiguous()
         ok = ((d2 > 0.0) & (d2 < inf)
               & (rows < n_valid)[:, :, None] & (cols < n_valid)[:, None, :])
         bits = d2.view(torch.int32).long() << 32
@@ -235,13 +306,72 @@ def nn_bidir(coords_t, fe, oid, n_valid, ti, tj, keys, row_block,
         ("ti", ti, torch.int32, (n_tiles,)),
         ("tj", tj, torch.int32, (n_tiles,)),
         ("keys", keys, torch.int64, (2, n_pad))], [("n_valid", n_valid)])
-    _grid(coords_t, row_block, col_block)
+    _grid(coords_t, coords_t, row_block, col_block)
     if n_tiles == 0:
         return keys
     with torch.cuda.device(coords_t.device):
         _run("ck_nn_bidir", "nn_bidir", _ptr(coords_t), n_pad, n_dim,
              _ptr(fe), _ptr(oid), int(n_valid), _ptr(ti), _ptr(tj), n_tiles,
              row_block, col_block, _ptr(keys), _stream(coords_t.device))
+    return keys
+
+
+def nn_sparse_plain(rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid,
+                    n_valid, ti, tj, keys, row_block, col_block):
+    """Plain version of :func:`nn_sparse`."""
+    inf = torch.tensor(float("inf"), device=rows_t.device)
+    keep = tj >= 0
+    for rows, cols in _batches(ti[keep], tj[keep], row_block, col_block):
+        d2 = _tile_d2(rows_t, rows, cols_t, cols).contiguous()
+        ok = (d2 > 0.0) & (d2 < inf) & (cols < n_valid)[:, None, :]
+        k_row = ((d2.view(torch.int32).long() << 32)
+                 | oid[cols].long()[:, None, :])
+        slot = oid_rows[rows].long()
+        write = slot != IMAX
+        lower = fe_cols[cols][:, None, :] < fe_rows[rows][:, :, None]
+        for side, gate in ((0, ok), (1, ok & lower)):
+            best = torch.where(gate, k_row, KEY_NONE).amin(dim=2)
+            keys[side].scatter_reduce_(0, slot[write], best[write], "amin")
+    return keys
+
+
+def nn_sparse(rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid, n_valid, ti,
+              tj, keys, row_block, col_block):
+    """Row-side joint NN / lower-fe NN sweep (replaces
+    ``_nn_sparse_kernel``), for tile lists that hold both orientations.
+
+    A row frame's candidates are the columns below n_valid with
+    0 < d2 < inf; hd candidates also need fe_cols < fe_rows. Each row's
+    lexicographic (d2, original id) minimum folds IN PLACE into ``keys``,
+    the (2, N_pad) int64 id-keyed buffer of :func:`nn_bidir`, at slot
+    ``oid_rows[row]`` (below N_pad); rows whose ``oid_rows`` is INT32_MAX
+    (pads) never write. ``fe_rows``/``oid_rows`` (R_pad,) belong to
+    ``rows_t``, ``fe_cols``/``oid`` (N_pad,) to ``cols_t``. Entries with
+    tj < 0 are no-ops and repeats are harmless. Returns ``keys``."""
+    if rows_t.device.type == "cpu":
+        return nn_sparse_plain(rows_t, fe_rows, oid_rows, cols_t, fe_cols,
+                               oid, n_valid, ti, tj, keys, row_block,
+                               col_block)
+    n_dim, r_pad = rows_t.shape
+    n_pad = cols_t.shape[1]
+    n_tiles = ti.shape[0]
+    _check_cuda(rows_t, [
+        ("fe_rows", fe_rows, torch.float32, (r_pad,)),
+        ("oid_rows", oid_rows, torch.int32, (r_pad,)),
+        ("cols_t", cols_t, torch.float32, (n_dim, n_pad)),
+        ("fe_cols", fe_cols, torch.float32, (n_pad,)),
+        ("oid", oid, torch.int32, (n_pad,)),
+        ("ti", ti, torch.int32, (n_tiles,)),
+        ("tj", tj, torch.int32, (n_tiles,)),
+        ("keys", keys, torch.int64, (2, n_pad))], [("n_valid", n_valid)])
+    _grid(rows_t, cols_t, row_block, col_block)
+    if n_tiles == 0:
+        return keys
+    with torch.cuda.device(rows_t.device):
+        _run("ck_nn_sparse", "nn_sparse", _ptr(rows_t), r_pad, _ptr(fe_rows),
+             _ptr(oid_rows), _ptr(cols_t), n_pad, n_dim, _ptr(fe_cols),
+             _ptr(oid), int(n_valid), _ptr(ti), _ptr(tj), n_tiles,
+             row_block, col_block, _ptr(keys), _stream(rows_t.device))
     return keys
 
 
@@ -254,7 +384,7 @@ def label_min_bidir_plain(coords_t, labels, n_below, max_dist2, ti, tj,
     keep = dirty != 0
     md2 = torch.tensor(np.float32(max_dist2), device=coords_t.device)
     for rows, cols in _batches(ti[keep], tj[keep], row_block, col_block):
-        d2 = _tile_d2(coords_t, rows, cols)
+        d2 = _tile_d2(coords_t, rows, coords_t, cols)
         adj = ((d2 < md2) & (rows < n_below)[:, :, None]
                & (cols < n_below)[:, None, :])
         row_p = torch.where(adj, labels[cols][:, None, :], IMAX).amin(dim=2)
@@ -283,7 +413,7 @@ def label_min_bidir(coords_t, labels, n_below, max_dist2, ti, tj, dirty,
         ("ti", ti, torch.int32, (n_tiles,)),
         ("tj", tj, torch.int32, (n_tiles,)),
         ("dirty", dirty, torch.int32, (n_tiles,))], [("n_below", n_below)])
-    _grid(coords_t, row_block, col_block)
+    _grid(coords_t, coords_t, row_block, col_block)
     out = labels.clone()
     if n_tiles == 0:
         return out
@@ -293,4 +423,63 @@ def label_min_bidir(coords_t, labels, n_below, max_dist2, ti, tj, dirty,
              ctypes.c_float(np.float32(max_dist2)), _ptr(ti), _ptr(tj),
              _ptr(dirty), n_tiles, row_block, col_block, _ptr(out),
              _stream(coords_t.device))
+    return out
+
+
+def label_min_sparse_plain(rows_t, cols_t, labels, n_below, max_dist2, ti,
+                           tj, row_block_offset, dirty, row_block,
+                           col_block):
+    """Plain version of :func:`label_min_sparse`."""
+    out = torch.full((rows_t.shape[1],), IMAX, dtype=torch.int32,
+                     device=rows_t.device)
+    keep = (tj >= 0) & (dirty[tj.clamp_min(0).long()] != 0)
+    md2 = torch.tensor(np.float32(max_dist2), device=rows_t.device)
+    for rows, cols in _batches(ti[keep], tj[keep], row_block, col_block):
+        d2 = _tile_d2(rows_t, rows, cols_t, cols)
+        grow = rows + int(row_block_offset) * row_block
+        adj = ((d2 < md2) & (grow < n_below)[:, :, None]
+               & (cols < n_below)[:, None, :])
+        prop = torch.where(adj, labels[cols][:, None, :], IMAX).amin(dim=2)
+        out.scatter_reduce_(0, rows.reshape(-1), prop.reshape(-1), "amin")
+    return out
+
+
+def label_min_sparse(rows_t, cols_t, labels, n_below, max_dist2, ti, tj,
+                     row_block_offset, dirty, row_block, col_block):
+    """Row-side screening proposals (replaces
+    ``_label_min_sparse_kernel``), for tile lists that hold both
+    orientations.
+
+    ``ti`` indexes row blocks of ``rows_t``, whose first frame is the
+    global position ``row_block_offset * row_block``; ``tj`` indexes
+    column blocks of ``cols_t``. A tile is swept when its column block is
+    dirty (``dirty`` (N_pad // col_block,) int32, indexed by tj); each of
+    its pairs with d2 < max_dist2 and both global positions below n_below
+    proposes ``labels[col]`` to the row. Returns the (R_pad,) int32
+    proposals, INT32_MAX where a row has none; ``labels`` (N_pad,) is left
+    unchanged. Entries with tj < 0 are no-ops and repeats are harmless."""
+    if rows_t.device.type == "cpu":
+        return label_min_sparse_plain(rows_t, cols_t, labels, n_below,
+                                      max_dist2, ti, tj, row_block_offset,
+                                      dirty, row_block, col_block)
+    n_dim, r_pad = rows_t.shape
+    n_pad = cols_t.shape[1]
+    n_tiles = ti.shape[0]
+    _check_cuda(rows_t, [
+        ("cols_t", cols_t, torch.float32, (n_dim, n_pad)),
+        ("labels", labels, torch.int32, (n_pad,)),
+        ("ti", ti, torch.int32, (n_tiles,)),
+        ("tj", tj, torch.int32, (n_tiles,)),
+        ("dirty", dirty, torch.int32, (n_pad // col_block,))],
+        [("n_below", n_below), ("row_block_offset", row_block_offset)])
+    _grid(rows_t, cols_t, row_block, col_block)
+    out = torch.full((r_pad,), IMAX, dtype=torch.int32, device=rows_t.device)
+    if n_tiles == 0:
+        return out
+    with torch.cuda.device(rows_t.device):
+        _run("ck_label_min_sparse", "label_min_sparse", _ptr(rows_t), r_pad,
+             _ptr(cols_t), n_pad, n_dim, _ptr(labels), int(n_below),
+             ctypes.c_float(np.float32(max_dist2)), _ptr(ti), _ptr(tj),
+             int(row_block_offset), _ptr(dirty), n_tiles, row_block,
+             col_block, _ptr(out), _stream(rows_t.device))
     return out

@@ -7,16 +7,27 @@ Counterpart of ``clustering_tpu/ops/neighbors.py``:
 
 Ties break toward the smallest j; zero-distance pairs (duplicate frames)
 are excluded; a frame with no admissible neighbour reports (0, 0.0).
-``nearest_neighbors_dense`` is the dense oracle of the tile-sweep path
-(the counterpart of ``nn_rows``).
+``nearest_neighbors`` is the library entry point on the tile-sweep path
+(the JAX one with ``backend="pallas"``), ``nearest_neighbors_dense`` its
+dense oracle (the counterpart of ``nn_rows``).
 """
 
 import numpy as np
 import torch
 
+from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, DensityEngine
 from .pairwise import sq_dists
 
 _INF = float("inf")
+
+
+def nearest_neighbors(coords, free_energy, row_block=DEFAULT_ROW_BLOCK,
+                      col_block=DEFAULT_COL_BLOCK, device="cuda"):
+    """Returns (nh_idx, nh_d2, nhhd_idx, nhhd_d2) numpy arrays of len N,
+    through :class:`DensityEngine` on ``device``."""
+    engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
+                           device=device)
+    return engine.nearest_neighbors(free_energy)
 
 
 def nearest_neighbors_dense(coords, free_energy, device="cpu",

@@ -7,11 +7,16 @@ components of the graph i ~ j iff d2(i, j) < max_dist2 (= 4 sigma^2),
 with seed labels acting as permanent equivalences.
 
 Labels are int32 frame pointers in layout positions. The fixpoint is
-host-driven: each sweep runs the bidirectional label-min kernel over the
-upper-triangular tile list (tiles gated by per-tile dirty flags), then a
+host-driven: each sweep runs a label-min kernel over the tile list, then a
 scatter-min union over the label table with pointer jumping, then new
-dirty row/column flags; one scalar readback per sweep decides whether to
-go on. The last sweep is the verification sweep that changes nothing.
+dirty flags; one scalar readback per sweep decides whether to go on. The
+last sweep is the verification sweep that changes nothing. Two sweeps
+reach the same fixpoint:
+
+  bidir: the bidirectional kernel over the upper-triangular list, a tile
+  swept when its row or its column block is dirty;
+  symmetric: the row-side kernel over the full list (both orientations),
+  a tile swept when its column block is dirty.
 """
 
 import time
@@ -47,18 +52,25 @@ def union_rebase(labels_in, labels_cur):
 class ScreeningEngine:
     """Screening runner over one (layout-ordered) frame matrix on
     ``device``: pads and uploads the coordinates once and caches the
-    strict-< bbox activity plane per linking distance."""
+    strict-< bbox activity plane per linking distance.
+
+    Any (row_block, col_block) pair is served: N is padded to their least
+    common multiple. The fixpoint sweeps bidirectionally when ``BIDIR``
+    is on (the counterpart of the JAX engine's ``BIDIR_UNION_VMEM``, which
+    0 turns off) and col_block % row_block == 0 (the row-dirty flags
+    reshape the union into row blocks), else symmetrically."""
+
+    BIDIR = True
 
     def __init__(self, coords_sorted, row_block=DEFAULT_ROW_BLOCK,
                  col_block=DEFAULT_COL_BLOCK, device="cuda"):
-        if col_block % row_block != 0:
-            raise ValueError("col_block must be a multiple of row_block")
         self.device = resolve_device(device)
         self.row_block = row_block
         self.col_block = col_block
         coords_sorted = np.asarray(coords_sorted, dtype=np.float32)
         self.n = coords_sorted.shape[0]
-        self.n_pad = -(-self.n // col_block) * col_block
+        block = int(np.lcm(row_block, col_block))
+        self.n_pad = -(-self.n // block) * block
         padded = np.full((self.n_pad, coords_sorted.shape[1]),
                          np.float32(3e38), dtype=np.float32)
         padded[:self.n] = coords_sorted
@@ -77,11 +89,12 @@ class ScreeningEngine:
             self._below = (key, below)
         return self._below[1]
 
-    def tile_list(self, row_lo, n_below, max_dist2):
-        """Upper-triangular tiles that can hold an admissible pair: bbox
-        distance below the linking distance, inside the n_below prefix,
-        and touching the new-frame cross when ``row_lo`` > 0. Flat
-        row-major (ti, tj) int32, or None."""
+    def tile_list(self, row_lo, n_below, max_dist2, triangular=True):
+        """Tiles that can hold an admissible pair: bbox distance below the
+        linking distance, inside the n_below prefix, touching the
+        new-frame cross when ``row_lo`` > 0, and (``triangular``)
+        intersecting the upper triangle. Flat row-major (ti, tj) int32, or
+        None."""
         rb, cb = self.row_block, self.col_block
         active_lt = self._below_plane(max_dist2)
         nrb, ncb = active_lt.shape
@@ -90,7 +103,8 @@ class ScreeningEngine:
         active = active_lt & (ri * rb < n_below) & (cj * cb < n_below)
         if row_lo > 0:
             active &= ((ri + 1) * rb > row_lo) | ((cj + 1) * cb > row_lo)
-        active &= (cj + 1) * cb > ri * rb
+        if triangular:
+            active &= (cj + 1) * cb > ri * rb
         return pruning.tile_list(active)
 
     def union_size(self, n_below):
@@ -99,8 +113,12 @@ class ScreeningEngine:
             max(-(-n_below // self.col_block), 1))))
         return min(nub * self.col_block, self.n_pad)
 
-    def _union_step(self, labels_in, labels_swept, union_size):
-        """Union + pointer jumping + dirty column/row flags of one sweep."""
+    def _bidir_ok(self):
+        return self.BIDIR and self.col_block % self.row_block == 0
+
+    def _union_step(self, labels_in, labels_swept, union_size, rows):
+        """Union + pointer jumping + dirty flags of one sweep: per column
+        block, and per row block too when ``rows`` (else None)."""
         rb, cb = self.row_block, self.col_block
         head_in = labels_in[:union_size]
         head_out = union_rebase(head_in, labels_swept[:union_size])
@@ -108,10 +126,12 @@ class ScreeningEngine:
         labels_out = torch.cat([head_out, labels_in[union_size:]])
         dirty_col = torch.zeros(self.n_pad // cb, dtype=torch.bool,
                                 device=self.device)
-        dirty_row = torch.zeros(self.n_pad // rb, dtype=torch.bool,
-                                device=self.device)
         dirty_col[:union_size // cb] = changed.reshape(-1, cb).any(dim=1)
-        dirty_row[:union_size // rb] = changed.reshape(-1, rb).any(dim=1)
+        dirty_row = None
+        if rows:
+            dirty_row = torch.zeros(self.n_pad // rb, dtype=torch.bool,
+                                    device=self.device)
+            dirty_row[:union_size // rb] = changed.reshape(-1, rb).any(dim=1)
         return labels_out, bool(changed.any()), dirty_col, dirty_row
 
     def run_device(self, labels, n_below, max_dist2, row_lo=0):
@@ -120,36 +140,47 @@ class ScreeningEngine:
         carry a completed fixpoint at this max_dist2, so only tiles
         touching the new frames are swept. Returns new device labels."""
         t0 = time.perf_counter()
-        tiles = self.tile_list(row_lo, n_below, max_dist2)
+        bidir = self._bidir_ok()
+        tiles = self.tile_list(row_lo, n_below, max_dist2, triangular=bidir)
         if tiles is None:
             return labels
+        rb, cb = self.row_block, self.col_block
         union_size = self.union_size(n_below)
         ti = torch.as_tensor(tiles[0], device=self.device)
         tj = torch.as_tensor(tiles[1], device=self.device)
         t_plan = time.perf_counter() - t0
-        dirty_col = torch.ones(self.n_pad // self.col_block,
-                               dtype=torch.bool, device=self.device)
-        dirty_row = torch.ones(self.n_pad // self.row_block,
-                               dtype=torch.bool, device=self.device)
+        dirty_col = torch.ones(self.n_pad // cb, dtype=torch.bool,
+                               device=self.device)
+        dirty_row = (torch.ones(self.n_pad // rb, dtype=torch.bool,
+                                device=self.device) if bidir else None)
         iters = 0
         swept = 0
         while True:
-            dirty = (dirty_col[tj.long()] | dirty_row[ti.long()])
-            swept += int(dirty.sum())
-            labels_swept = kernels.label_min_bidir(
-                self.coords_t, labels, n_below, max_dist2, ti, tj,
-                dirty.to(torch.int32), self.row_block, self.col_block)
+            if bidir:
+                dirty = (dirty_col[tj.long()] | dirty_row[ti.long()])
+                swept += int(dirty.sum())
+                labels_swept = kernels.label_min_bidir(
+                    self.coords_t, labels, n_below, max_dist2, ti, tj,
+                    dirty.to(torch.int32), rb, cb)
+            else:
+                swept += int(dirty_col[tj.long()].sum())
+                prop = kernels.label_min_sparse(
+                    self.coords_t, self.coords_t, labels, n_below, max_dist2,
+                    ti, tj, 0, dirty_col.to(torch.int32), rb, cb)
+                labels_swept = torch.minimum(labels, prop)
             labels, changed, dirty_col, dirty_row = self._union_step(
-                labels, labels_swept, union_size)
+                labels, labels_swept, union_size, bidir)
             iters += 1
             if not changed:
                 break
+        mode = "bidir" if bidir else "symmetric"
         if is_verbose():
             logger(f"    [screening fixpoint: {iters} sweeps,"
-                   f" {len(tiles[0])} tiles/sweep, {swept} swept, bidir,"
+                   f" {len(tiles[0])} tiles/sweep, {swept} swept, {mode},"
                    " host plan, host-driven]")
         self.last_stats = {"sweeps": iters, "tiles_per_sweep": len(tiles[0]),
-                           "swept_tiles": swept, "t_plan": t_plan,
+                           "swept_tiles": swept, "mode": mode,
+                           "t_plan": t_plan,
                            "t_fixpoint": time.perf_counter() - t0 - t_plan}
         return labels
 
@@ -356,3 +387,15 @@ class ThresholdSeriesScreener:
         fut = pool.submit(lambda: self._postlude(prefix.cpu().numpy(), nb))
         self._last_future = fut
         return fut
+
+
+def screening_labels(coords_sorted, initial_labels, n_below, max_dist2,
+                     row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
+                     device="cuda"):
+    """Host wrapper: pad, run the fixpoint, unpad.
+
+    ``coords_sorted`` (N, D) must already be in FE-ascending order and
+    ``initial_labels`` (N,) int32 frame pointers with labels[i] <= i."""
+    engine = ScreeningEngine(coords_sorted, row_block=row_block,
+                             col_block=col_block, device=device)
+    return engine.run(initial_labels, n_below, max_dist2)

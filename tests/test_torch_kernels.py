@@ -1,11 +1,12 @@
-"""The port's three tile-sweep kernels against the JAX package's Pallas
-kernels (run in interpret mode, as tests/test_pallas_interpret.py runs
-them) on identical inputs and tile lists.
+"""The port's bidirectional tile-sweep kernels against the JAX package's
+Pallas kernels (run in interpret mode, as tests/test_pallas_interpret.py
+runs them) on identical inputs and tile lists; the row-side kernels are
+pinned the same way in tests/test_torch_symmetric.py.
 
 On the CPU every wrapper takes its plain PyTorch version, so these tests
 pin the plain versions -- the oracles the CUDA kernels are held to -- to
-the reference kernels. The tests marked ``cuda`` hold the CUDA kernels to
-the plain versions on the card and skip without one.
+the reference kernels. The tests marked ``cuda`` hold all six CUDA kernels
+to their plain versions on the card and skip without one.
 
 Counts, ids and labels must be exact. Distances must be bit-equal: both
 sides compute the plain fma chain acc = fma(d_k, d_k, acc) from zero.
@@ -208,4 +209,70 @@ def test_cuda_kernels_match_plain(d, rb, cb):
                                        dirty, rb, cb)
     assert torch.equal(l1, l2)
     assert kernels.LAUNCHES == {"pops_bidir": 1, "nn_bidir": 1,
-                                "label_min_bidir": 1}
+                                "label_min_bidir": 1, "pops_sparse": 0,
+                                "nn_sparse": 0, "label_min_sparse": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,rb,cb", [(2, 8, 16), (3, 16, 24), (4, 128, 4096),
+                                     (17, 32, 64)])
+def test_cuda_sparse_kernels_match_plain(d, rb, cb):
+    """The three row-side kernels on cross-form inputs (a row set of its
+    own, tj = -1 pads, a row-block offset and a dirty subset) against their
+    plain versions: exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(100 + d)
+    n = 3 * cb + 37
+    block = int(np.lcm(rb, cb))
+    n_pad = -(-n // block) * block
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[:8] = c[0]
+    ct = np.full((d, n_pad), np.float32(3e38), np.float32)
+    ct[:, :n] = c.T
+    off = 2
+    rows = np.ascontiguousarray(ct[:, off * rb:off * rb + 5 * rb])
+    rows[:, :3] += np.float32(0.01)
+    nrb, ncb = rows.shape[1] // rb, n_pad // cb
+    ti, tj = np.nonzero(rng.random((nrb, ncb)) < 0.7)
+    ti = np.append(ti, ti[-1]).astype(np.int32)
+    tj = np.append(tj, -1).astype(np.int32)
+    rmask = rng.integers(1, 8, size=len(ti)).astype(np.int32)
+    rmask[-1] = 0
+    ct_d, rows_d = torch.as_tensor(ct, device=dev), torch.as_tensor(rows,
+                                                                    device=dev)
+    ti_d, tj_d = torch.as_tensor(ti, device=dev), torch.as_tensor(tj,
+                                                                  device=dev)
+    r2 = torch.tensor([0.01, 0.05, 0.2], device=dev)
+    kernels.reset_launches()
+    pargs = (rows_d, ct_d, r2, n, ti_d, tj_d, torch.as_tensor(rmask,
+                                                              device=dev),
+             rb, cb)
+    assert torch.equal(kernels.pops_sparse(*pargs),
+                       kernels.pops_sparse_plain(*pargs))
+    fe = torch.full((n_pad,), float("inf"), device=dev)
+    fe[:n] = torch.as_tensor((rng.integers(0, 5, size=n) / 4.0)
+                             .astype(np.float32), device=dev)
+    oid = torch.full((n_pad,), IMAX, dtype=torch.int32, device=dev)
+    oid[:n] = torch.as_tensor(rng.permutation(n).astype(np.int32), device=dev)
+    fe_r = fe[off * rb:off * rb + 5 * rb].contiguous()
+    oid_r = oid[off * rb:off * rb + 5 * rb].contiguous()
+
+    def nn(fn):
+        return fn(rows_d, fe_r, oid_r, ct_d, fe, oid, n, ti_d, tj_d,
+                  kernels.nn_keys_init(n_pad, dev), rb, cb)
+
+    assert torch.equal(nn(kernels.nn_sparse), nn(kernels.nn_sparse_plain))
+    labels = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    labels[:n] = torch.minimum(labels[:n], torch.as_tensor(
+        rng.integers(0, n, size=n).astype(np.int32), device=dev))
+    dirty = torch.as_tensor((rng.random(ncb) < 0.7).astype(np.int32),
+                            device=dev)
+    largs = (rows_d, ct_d, labels, n - 20, 0.05, ti_d, tj_d, off, dirty, rb,
+             cb)
+    assert torch.equal(kernels.label_min_sparse(*largs),
+                       kernels.label_min_sparse_plain(*largs))
+    assert (kernels.label_min_sparse(*largs) < IMAX).any()
+    assert kernels.LAUNCHES == {"pops_bidir": 0, "nn_bidir": 0,
+                                "label_min_bidir": 0, "pops_sparse": 1,
+                                "nn_sparse": 1, "label_min_sparse": 2}
