@@ -12,10 +12,14 @@ Phases, each printing its own lines; any failure exits non-zero:
      upper-triangular lists for the bidirectional kernels; the full
      populations plane, the band without closure and the full screening
      list, all columns dirty and a dirty subset, for the row-side
-     kernels): counts, ids and labels exact, distances bit-equal;
-  4. the density CLI on cuda against the same CLI on cpu at N = 2^15:
-     pop, fe and clust.* files identical, nn ids identical, nn distances
-     bit-equal or within one unit of the last printed digit;
+     kernels) and, for the dense-grid kernels, on the Morton layout's
+     skip words (radius words for ``pops_tiles``; band words, then the
+     band's bound words, for ``nn_tiles``): counts, ids and labels exact,
+     distances bit-equal;
+  4. the density CLI on cuda with ``--check`` against the same CLI on cpu
+     without it at N = 2^15: the check must pass (its counts are
+     printed); pop, fe and clust.* files identical, nn ids identical, nn
+     distances bit-equal or within one unit of the last printed digit;
   5. the main path at N = 2^20, D = 4: ``density -r 0.1 -T 0.5 0.5 2.0``
      through the port's CLI, with its stage walls, the launch count of
      every bidirectional kernel (each must be > 0) and output invariants;
@@ -25,12 +29,19 @@ Phases, each printing its own lines; any failure exits non-zero:
      switches on and once with them off (``POPS_BIDIR``, ``NN_BIDIR``,
      ``BIDIR``); populations, nn ids, nn distances (bit for bit) and every
      clustering must be identical, every row-side kernel launched in the
-     symmetric run and no bidirectional one.
+     symmetric run and no bidirectional one;
+  7. the skip-word route at N = 2^20, D = 4, r = 0.1, as the library
+     functions ``pops_tiles`` and ``nn_tiles`` are meant to be composed:
+     Morton layout, populations under radius skip words, free energies,
+     then NN in two passes (a band pass; a pass under the band's
+     per-row-block bounds, whose output alone is the answer). Populations,
+     nn ids and nn distances (bit for bit) must equal phase 6's
+     bidirectional run.
 
 The line before the last holds the kernels' JSON record (launches of the
 bidirectional kernels from phase 5, of the row-side kernels from phase
-6's symmetric run); the last line is {"ok": true, "device": {...}}. It
-imports nothing of JAX.
+6's symmetric run, of the dense-grid kernels from phase 7); the last line
+is {"ok": true, "device": {...}}. It imports nothing of JAX.
 """
 
 import contextlib
@@ -60,9 +71,12 @@ KERNELS = {
     "pops_sparse": "clustering_tpu/ops/pallas_kernels.py:191",
     "nn_sparse": "clustering_tpu/ops/pallas_kernels.py:982",
     "label_min_sparse": "clustering_tpu/ops/pallas_kernels.py:1275",
+    "pops_tiles": "clustering_tpu/ops/pallas_kernels.py:114",
+    "nn_tiles": "clustering_tpu/ops/pallas_kernels.py:622",
 }
 BIDIR_KERNELS = ("pops_bidir", "nn_bidir", "label_min_bidir")
 SPARSE_KERNELS = ("pops_sparse", "nn_sparse", "label_min_sparse")
+TILES_KERNELS = ("pops_tiles", "nn_tiles")
 
 
 def fail(msg):
@@ -188,10 +202,34 @@ def keys_equal(torch, n):
     return compare
 
 
-def phase_kernels(torch):
+def rows_equal(torch):
+    """Compare two (nh_d, nh_j, hd_d, hd_j) row-position results: ids
+    equal and distances bit-equal."""
+    def compare(got, want):
+        bad_j = sum(int((got[i] != want[i]).sum()) for i in (1, 3))
+        bad_d = sum(int((got[i].view(torch.int32)
+                         != want[i].view(torch.int32)).sum()) for i in (0, 2))
+        err = 0.0
+        for i in (0, 2):
+            fin = torch.isfinite(got[i]) & torch.isfinite(want[i])
+            err = max(err, max_abs_err(got[i][fin], want[i][fin]))
+        return bad_j + bad_d, err, (
+            f"{bad_j} id mismatches, {bad_d} distances not bit-equal (max"
+            f" abs err {err})")
+    return compare
+
+
+def kept_cells(words, nrb, ncb):
+    """'kept/total cells' of a dense grid's skip words."""
     from clustering_tpu_torch.ops import kernels
+    kept = len(kernels.kept_tiles(words, nrb, ncb)[0])
+    return f"{kept}/{nrb * ncb} cells"
+
+
+def phase_kernels(torch):
+    from clustering_tpu_torch.ops import kernels, pruning
     from clustering_tpu_torch.ops.density import free_energies
-    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.ops.engine import NN_BAND_BLOCKS, DensityEngine
     from clustering_tpu_torch.ops.neighbors import compute_sigma2
     from clustering_tpu_torch.ops.screening import ThresholdSeriesScreener
     dev = torch.device("cuda")
@@ -247,6 +285,37 @@ def phase_kernels(torch):
          lambda: nn_run(kernels.nn_sparse_plain, *rows),
          keys_equal(torch, n))
 
+    # the dense-grid kernels on the Morton layout: radius skip words for
+    # the counts; band words, then the band's bound words, for NN
+    _, padded = eng._padded("morton")
+    nrb, ncb = eng.n_pad // rb, eng.n_pad // cb
+    words = put(pruning.radius_skip_words(padded, rb, cb, r2.item())[0])
+    hold(torch, rec, "pops_tiles", kept_cells(words, nrb, ncb),
+         lambda: kernels.pops_tiles(ct_m, r2, n, words, rb, cb),
+         lambda: kernels.pops_tiles_cross_plain(ct_m, ct_m, r2, n, words, rb,
+                                                cb),
+         exact("count"))
+    fe_r, oid_r = fe_l.reshape(1, -1), oid.reshape(1, -1)
+
+    def nn_tiles_run(fn, words):
+        return fn(ct_m, fe_r, ct_m, fe_r, oid_r, n, words, rb, cb)
+
+    words = put(pruning.band_skip_words(nrb, ncb, rb, cb,
+                                        NN_BAND_BLOCKS * cb)[0])
+    band = hold(torch, rec, "nn_tiles", "band, " + kept_cells(words, nrb, ncb),
+                lambda: kernels.nn_tiles(ct_m, fe_r, oid_r, n, words, rb, cb),
+                lambda: nn_tiles_run(kernels.nn_tiles_cross_plain, words),
+                rows_equal(torch))
+    ub = torch.maximum(band[0], band[2])[0]
+    ub[n:] = 0.0  # pads need no neighbour
+    row_ub = ub.reshape(nrb, rb).amax(dim=1).cpu().numpy()
+    words = put(pruning.ub_skip_words(padded, rb, cb, row_ub)[0])
+    hold(torch, rec, "nn_tiles",
+         "band bounds, " + kept_cells(words, nrb, ncb),
+         lambda: nn_tiles_run(kernels.nn_tiles_cross, words),
+         lambda: nn_tiles_run(kernels.nn_tiles_cross_plain, words),
+         rows_equal(torch))
+
     # screening: the first sweep of the series' last threshold, over the
     # upper-triangular list and over the full list (every column block
     # dirty, then every third)
@@ -286,9 +355,9 @@ def phase_kernels(torch):
 
 # -- phases 4 and 5 ------------------------------------------------------------
 
-def run_cli(workdir, coords, device):
-    """Run the port's density CLI in ``workdir`` on ``device``; returns
-    its stdout (also echoed)."""
+def run_cli(workdir, coords, device, extra=()):
+    """Run the port's density CLI in ``workdir`` on ``device`` with the
+    ``extra`` arguments; returns its stdout (also echoed)."""
     from clustering_tpu_torch import cli
     os.makedirs(workdir, exist_ok=True)
     np.savetxt(os.path.join(workdir, "coords.dat"), coords, fmt="%.6f")
@@ -298,7 +367,7 @@ def run_cli(workdir, coords, device):
     try:
         os.chdir(workdir)
         with contextlib.redirect_stdout(buf):
-            rc = cli.main(ARGV)
+            rc = cli.main(ARGV + list(extra))
     finally:
         os.chdir(cwd)
     out = buf.getvalue()
@@ -322,10 +391,18 @@ def read_nn(path):
 def phase_slice(tmp):
     coords = synthetic_fel(N_SLICE, DIM, seed=1)
     walls = {}
-    for device in ("cuda", "cpu"):
+    for device, extra in (("cuda", ["--check"]), ("cpu", [])):
         t0 = time.perf_counter()
-        run_cli(os.path.join(tmp, device), coords, device)
+        out = run_cli(os.path.join(tmp, device), coords, device, extra)
         walls[device] = time.perf_counter() - t0
+        if extra:
+            checks = re.findall(r"\[check\] (\w+): (\d+)/(\d+)", out)
+            if sorted(kind for kind, _, _ in checks) != ["nn", "pops"]:
+                fail(f"--check printed {checks}, not one pops and one nn"
+                     " line")
+            print("[slice] --check on cuda: " + ", ".join(
+                f"{kind} {bad}/{total} entries differ"
+                for kind, bad, total in checks))
     a, b = os.path.join(tmp, "cuda"), os.path.join(tmp, "cpu")
     names = ["pop", "fe"] + [f"clust.{t}" for t in THRESHOLDS]
     for name in names:
@@ -489,6 +566,115 @@ def phase_symmetric(torch):
     print(f"[symmetric] N={N_MAIN}: populations, nn ids, nn distances (bit"
           f" for bit) and {len(THRESHOLDS)} clusterings identical;"
           f" {int(clust_s[-1].max())} states at {THRESHOLDS[-1]}")
+    return launches, pops_b, nn_b
+
+
+# -- phase 7 -------------------------------------------------------------------
+
+def phase_skip_words(torch, want_pops, want_nn):
+    """The dense skip-word route at 2^20, composed as the JAX library's
+    pops_tiles / nn_tiles docstrings leave it to callers; must equal the
+    bidirectional engine run (``want_pops``, ``want_nn``)."""
+    from clustering_tpu_torch.ops import kernels, pruning
+    from clustering_tpu_torch.ops.density import free_energies
+    from clustering_tpu_torch.ops.engine import NN_BAND_BLOCKS
+    coords = synthetic_fel(N_MAIN, DIM, seed=0)
+    rb, cb = kernels.DEFAULT_ROW_BLOCK, kernels.DEFAULT_COL_BLOCK
+    n = N_MAIN
+    block = int(np.lcm(rb, cb))
+    n_pad = -(-n // block) * block
+    nrb, ncb = n_pad // rb, n_pad // cb
+    walls, cells = {}, {}
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device="cuda")
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    def layout():
+        order = pruning.morton_order(coords)
+        padded = np.full((n_pad, DIM), np.float32(3e38), np.float32)
+        padded[:n] = coords[order]
+        return order, padded, put(padded.T)
+
+    def pass_words(name, words):
+        w = put(words)
+        cells[name] = len(kernels.kept_tiles(w, nrb, ncb)[0])
+        return w
+
+    kernels.reset_launches()
+    order, padded, ct = stage("layout", layout)
+    r2 = np.float32(RADIUS) * np.float32(RADIUS)
+
+    def populations():
+        words = pruning.radius_skip_words(padded, rb, cb, r2, strict=True)[0]
+        counts = kernels.pops_tiles(ct, put(np.asarray([r2])), n,
+                                    pass_words("populations", words), rb, cb)
+        pops = np.empty(n, np.int64)
+        pops[order] = counts[0, :n].cpu().numpy()
+        return pops
+
+    pops = stage("populations", populations)
+    fe = free_energies(pops)
+    fe_l = np.full((1, n_pad), np.inf, np.float32)
+    fe_l[0, :n] = fe[order]
+    oid = np.full((1, n_pad), np.iinfo(np.int32).max, np.int32)
+    oid[0, :n] = order
+    fe_l, oid = put(fe_l), put(oid)
+
+    def nn_pass(name, words):
+        return kernels.nn_tiles(ct, fe_l, oid, n, pass_words(name, words),
+                                rb, cb)
+
+    band = stage("nn band", lambda: nn_pass("nn band", pruning.band_skip_words(
+        nrb, ncb, rb, cb, NN_BAND_BLOCKS * cb)[0]))
+
+    def phase2():
+        # the band's distances bound each frame's true ones (+inf where it
+        # held no lower-fe neighbour); tiles farther than the row block's
+        # bound cannot hold a winner
+        ub = torch.maximum(band[0], band[2])[0]
+        ub[n:] = 0.0
+        row_ub = ub.reshape(nrb, rb).amax(dim=1).cpu().numpy()
+        out = nn_pass("nn phase 2",
+                      pruning.ub_skip_words(padded, rb, cb, row_ub)[0])
+        nn = []
+        for d2, j in ((out[0], out[1]), (out[2], out[3])):
+            d2, j = d2[0, :n].cpu().numpy(), j[0, :n].cpu().numpy()
+            absent = ~(d2 < np.inf)
+            ids = np.empty(n, np.int64)
+            ids[order] = np.where(absent, 0, j)
+            dist = np.empty(n, np.float32)
+            dist[order] = np.where(absent, np.float32(0.0), d2)
+            nn += [ids, dist]
+        return nn
+
+    nn = stage("nn phase 2", phase2)
+    launches = dict(kernels.LAUNCHES)
+    print(f"[skip words] N={n} D={DIM}: stages " + json.dumps(walls))
+    print("[skip words] kept cells " + json.dumps(
+        {k: f"{v}/{nrb * ncb}" for k, v in cells.items()})
+        + f", launches {json.dumps(launches)}")
+    if launches["pops_tiles"] < 1 or launches["nn_tiles"] < 2:
+        fail("the skip-word route did not launch pops_tiles once and"
+             " nn_tiles twice")
+    if not np.array_equal(pops, want_pops):
+        fail("skip-word populations differ from the bidirectional run")
+    for i in (0, 2):
+        if not np.array_equal(nn[i], want_nn[i]):
+            fail("skip-word nn ids differ from the bidirectional run")
+    for i in (1, 3):
+        if not np.array_equal(
+                nn[i].view(np.int32),
+                np.asarray(want_nn[i], np.float32).view(np.int32)):
+            fail("skip-word nn distances differ from the bidirectional run")
+    print(f"[skip words] N={n}: populations, nn ids and nn distances (bit"
+          " for bit) identical to the bidirectional run")
     return launches
 
 
@@ -499,9 +685,12 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice(tmp)
         launches = phase_main(torch, tmp)
-    sym_launches = phase_symmetric(torch)
+    sym_launches, pops_b, nn_b = phase_symmetric(torch)
     for name in SPARSE_KERNELS:
         launches[name] = sym_launches[name]
+    tiles_launches = phase_skip_words(torch, pops_b, nn_b)
+    for name in TILES_KERNELS:
+        launches[name] = tiles_launches[name]
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"clustering_tpu_torch/csrc/{name}.cu",

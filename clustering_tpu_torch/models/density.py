@@ -108,10 +108,29 @@ def _parse_threshold_series(params, free_energy):
     return t_from, t_step, t_to, thresholds
 
 
+def _check_backends(coords, kind, got, radii=None, fe=None, device="cpu"):
+    """--check mode: recompute with the dense plain versions on ``device``
+    and report how many entries disagree with the kernels' route (the
+    JAX package compares its Pallas route with its XLA route)."""
+    n = len(coords)
+    if kind == "pops":
+        other = dops.populations_dense(coords, radii, device=device)
+        bad = sum(int((got[r] != other[r]).sum()) for r in radii)
+        total = n * len(radii)
+    else:
+        other = nops.nearest_neighbors_dense(coords, fe, device=device)
+        bad = int((got[0] != other[0]).sum() + (got[2] != other[2]).sum())
+        total = 2 * n
+    frac = bad / max(total, 1)
+    logger(f"    [check] {kind}: {bad}/{total} entries differ between"
+           " backends")
+    if frac > 0.01:
+        _die(f"error: --check failed for {kind}:"
+             f" {frac:.2%} of entries disagree between backends")
+
+
 def main(args, header_comment, comments_map, device):
     """density mode on ``device``."""
-    if getattr(args, "check", False):
-        _die("error: --check is not supported by the torch port yet.")
     coords = io.read_coords(args.file)
     engine = DensityEngine(coords, device=device)
     free_energy = None
@@ -167,6 +186,9 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
         logger("    using radii: " + ", ".join(str(r) for r in radii))
         with stage_timer("populations"):
             pops_map = engine.populations(radii)
+        if args.check:
+            _check_backends(engine.coords, "pops", pops_map, radii=radii,
+                            device=engine.device)
         logger("    storing results")
         for radius in sorted(pops_map):
             pops = pops_map[radius]
@@ -196,6 +218,9 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
     comments_map["clustering_radius"] = radius
     with stage_timer("populations"):
         pops = engine.populations([radius])[radius]
+    if args.check:
+        _check_backends(engine.coords, "pops", {radius: pops},
+                        radii=[radius], device=engine.device)
     if args.population:
         logger("    storing population in: " + args.population)
         defer_write(io.write_pops, args.population, pops)
@@ -226,6 +251,9 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
     logger("    calculating nearest neighbors")
     with stage_timer("nearest neighbors"):
         nh = engine.nearest_neighbors(free_energy)
+    if args.check:
+        _check_backends(engine.coords, "nn", nh, fe=free_energy,
+                        device=engine.device)
     if comments_map["lumping_radius"] == 0.0:
         sigma2 = nops.compute_sigma2(nh[1])
         radius_lump = float(np.sqrt(np.float32(4.0 * sigma2)))

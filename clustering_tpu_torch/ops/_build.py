@@ -63,6 +63,14 @@ SIGNATURES = {
     # row_block_offset, dirty, n_tiles, row_block, col_block, prop, stream
     "ck_label_min_sparse": [_P, _LL, _P, _LL, _I, _P, _I, _F, _P, _P, _I,
                             _P, _LL, _I, _I, _P, _P],
+    # rows_t, r_pad, cols_t, n_pad, d, radii2, n_radii, n_valid,
+    # skip_words, words_per_row, row_block, col_block, out, stream
+    "ck_pops_tiles": [_P, _LL, _P, _LL, _I, _P, _I, _I, _P, _I, _I, _I, _P,
+                      _P],
+    # rows_t, r_pad, fe_rows, cols_t, n_pad, d, fe_cols, orig_ids, n_valid,
+    # skip_words, words_per_row, row_block, col_block, keys, stream
+    "ck_nn_tiles": [_P, _LL, _P, _P, _LL, _I, _P, _P, _I, _P, _I, _I, _I,
+                    _P, _P],
 }
 
 _lock = threading.Lock()

@@ -18,10 +18,9 @@ from clustering_tpu.utils import textio_native
 from clustering_tpu.utils.logger import is_verbose, logger
 
 from . import kernels, pruning
+from .kernels import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK
 from .pairwise import pair_d2
 
-DEFAULT_ROW_BLOCK = 128
-DEFAULT_COL_BLOCK = 4096
 # the NN band pass: frames within +-4 column blocks of Morton positions
 NN_BAND_BLOCKS = 4
 NN_BAND_ORDER = "morton"

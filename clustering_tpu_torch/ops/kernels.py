@@ -1,10 +1,13 @@
 """The pairwise tile-sweep kernels: CUDA wrappers, plain versions and
 launch counts.
 
-Two families: the bidirectional kernels (``*_bidir``) sweep an
+Three families: the bidirectional kernels (``*_bidir``) sweep an
 upper-triangular tile list and serve both frames of every pair; the
 symmetric, row-side kernels (``*_sparse``) serve only the row frame, so
-their tile lists hold both orientations. The row-side kernels take the
+their tile lists hold both orientations; the dense-grid kernels
+(``pops_tiles``, ``nn_tiles``) visit every cell of the row-block x
+column-block grid and skip the cells whose bit is set in the packed skip
+words of :mod:`.pruning`. The row-side and dense-grid kernels take the
 cross form of the JAX package: a row matrix ``rows_t`` (D, R_pad) apart
 from the column matrix ``cols_t`` (D, N_pad); the single-device path
 passes one matrix twice.
@@ -35,9 +38,12 @@ IMAX = int(np.iinfo(np.int32).max)
 # finite (d2, id) key
 KEY_NONE = (0x7F800000 << 32) | IMAX
 MAX_RADII_PER_LAUNCH = 8
+DEFAULT_ROW_BLOCK = 128
+DEFAULT_COL_BLOCK = 4096
 
 LAUNCHES = {"pops_bidir": 0, "nn_bidir": 0, "label_min_bidir": 0,
-            "pops_sparse": 0, "nn_sparse": 0, "label_min_sparse": 0}
+            "pops_sparse": 0, "nn_sparse": 0, "label_min_sparse": 0,
+            "pops_tiles": 0, "nn_tiles": 0}
 
 
 def reset_launches():
@@ -483,3 +489,152 @@ def label_min_sparse(rows_t, cols_t, labels, n_below, max_dist2, ti, tj,
              int(row_block_offset), _ptr(dirty), n_tiles, row_block,
              col_block, _ptr(out), _stream(rows_t.device))
     return out
+
+
+# -- dense skip-word grids -----------------------------------------------------
+
+def kept_tiles(skip_words, n_row_blocks, n_col_blocks):
+    """Row-major (ti, tj) int32 lists of the grid cells whose skip bit is
+    clear: bit j of row block i is bit j % 32 of word
+    i * ceil(n_col_blocks / 32) + j // 32 (:func:`.pruning.pack_skip_words`)."""
+    words_per_row = -(-n_col_blocks // 32)
+    w = skip_words.reshape(n_row_blocks, words_per_row, 1)
+    bits = (w >> torch.arange(32, dtype=torch.int32, device=w.device)) & 1
+    skip = bits.reshape(n_row_blocks, words_per_row * 32)[:, :n_col_blocks]
+    ti, tj = torch.nonzero(skip == 0, as_tuple=True)
+    return ti.to(torch.int32), tj.to(torch.int32)
+
+
+def pops_tiles_cross_plain(rows_t, cols_t, radii2, n_valid, skip_words,
+                           row_block=DEFAULT_ROW_BLOCK,
+                           col_block=DEFAULT_COL_BLOCK):
+    """Plain version of :func:`pops_tiles_cross`: the kept cells through
+    :func:`pops_sparse_plain` with every radius bit set."""
+    ti, tj = kept_tiles(skip_words, rows_t.shape[1] // row_block,
+                        cols_t.shape[1] // col_block)
+    return pops_sparse_plain(rows_t, cols_t, radii2, n_valid, ti, tj,
+                             torch.full_like(ti, -1), row_block, col_block)
+
+
+def pops_tiles_cross(rows_t, cols_t, radii2, n_valid, skip_words,
+                     row_block=DEFAULT_ROW_BLOCK,
+                     col_block=DEFAULT_COL_BLOCK):
+    """Multi-radius population counts of the ``rows_t`` frames against the
+    ``cols_t`` frames over the dense (R_pad / row_block, N_pad / col_block)
+    grid (replaces ``_pops_kernel``).
+
+    A cell is skipped iff its bit is set in ``skip_words``, the flat int32
+    words of :func:`.pruning.pack_skip_words`. Every pair of a kept cell
+    with col < n_valid and d2 <= radii2[r] adds 1 to the ROW frame's count
+    at radius r; the self pair counts (d2 = 0). Returns (R, R_pad) int32
+    counts in the row order of ``rows_t``, 0 where every cell of a row
+    block is skipped."""
+    if rows_t.device.type == "cpu":
+        return pops_tiles_cross_plain(rows_t, cols_t, radii2, n_valid,
+                                      skip_words, row_block, col_block)
+    n_dim, r_pad = rows_t.shape
+    n_pad = cols_t.shape[1]
+    n_radii = radii2.shape[0]
+    words_per_row = -(-(n_pad // col_block) // 32)
+    _check_cuda(rows_t, [
+        ("cols_t", cols_t, torch.float32, (n_dim, n_pad)),
+        ("radii2", radii2, torch.float32, (n_radii,)),
+        ("skip_words", skip_words, torch.int32,
+         ((r_pad // row_block) * words_per_row,))], [("n_valid", n_valid)])
+    _grid(rows_t, cols_t, row_block, col_block)
+    _check(1 <= n_radii <= 31, "1 to 31 radii are supported")
+    out = torch.zeros((n_radii, r_pad), dtype=torch.int32,
+                      device=rows_t.device)
+    if r_pad == 0 or n_pad == 0:
+        return out
+    with torch.cuda.device(rows_t.device):
+        stream = _stream(rows_t.device)
+        for g in range(0, n_radii, MAX_RADII_PER_LAUNCH):
+            n_g = min(MAX_RADII_PER_LAUNCH, n_radii - g)
+            _run("ck_pops_tiles", "pops_tiles", _ptr(rows_t), r_pad,
+                 _ptr(cols_t), n_pad, n_dim, _ptr(radii2[g:]), n_g,
+                 int(n_valid), _ptr(skip_words), words_per_row, row_block,
+                 col_block, _ptr(out[g:]), stream)
+    return out
+
+
+def pops_tiles(coords_t, radii2, n_valid, skip_words,
+               row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
+    """All-pairs population counts of one frame matrix; see
+    :func:`pops_tiles_cross`."""
+    return pops_tiles_cross(coords_t, coords_t, radii2, n_valid, skip_words,
+                            row_block, col_block)
+
+
+def _row_results(keys):
+    """(nh_d, nh_j, hd_d, hd_j), each (1, R_pad), of a (2, R_pad) key
+    buffer in row position; KEY_NONE gives (+inf, INT32_MAX)."""
+    d2, ids = unpack_keys(keys)
+    ids = ids.to(torch.int32)
+    return d2[0:1], ids[0:1], d2[1:2], ids[1:2]
+
+
+def nn_tiles_cross_plain(rows_t, fe_rows, cols_t, fe_cols, orig_ids,
+                         n_valid, skip_words, row_block=DEFAULT_ROW_BLOCK,
+                         col_block=DEFAULT_COL_BLOCK):
+    """Plain version of :func:`nn_tiles_cross`: the kept cells through
+    :func:`nn_sparse_plain`, keyed by row position."""
+    r_pad = rows_t.shape[1]
+    ti, tj = kept_tiles(skip_words, r_pad // row_block,
+                        cols_t.shape[1] // col_block)
+    keys = nn_keys_init(r_pad, rows_t.device)
+    pos = torch.arange(r_pad, dtype=torch.int32, device=rows_t.device)
+    nn_sparse_plain(rows_t, fe_rows.reshape(-1), pos, cols_t,
+                    fe_cols.reshape(-1), orig_ids.reshape(-1), n_valid, ti,
+                    tj, keys, row_block, col_block)
+    return _row_results(keys)
+
+
+def nn_tiles_cross(rows_t, fe_rows, cols_t, fe_cols, orig_ids, n_valid,
+                   skip_words, row_block=DEFAULT_ROW_BLOCK,
+                   col_block=DEFAULT_COL_BLOCK):
+    """Joint NN / lower-fe NN search of the ``rows_t`` frames against the
+    ``cols_t`` frames over the dense (R_pad / row_block, N_pad / col_block)
+    grid (replaces ``_nn_kernel``).
+
+    A cell is skipped iff its bit is set in ``skip_words``. A row's
+    candidates in a kept cell are the columns below n_valid with
+    0 < d2 < inf; hd candidates also need fe_cols < fe_rows. ``fe_rows``
+    (1, R_pad) float32 belongs to ``rows_t``; ``fe_cols`` (1, N_pad)
+    float32 (+inf on pads) and ``orig_ids`` (1, N_pad) int32 to ``cols_t``.
+    Ties break toward the smaller original id. Returns (nh_d, nh_j, hd_d,
+    hd_j), each (1, R_pad) in the ROW order of ``rows_t``: float32 d2 and
+    int32 original ids, (+inf, INT32_MAX) where the kept cells held no
+    admissible neighbour (callers combine passes accordingly)."""
+    if rows_t.device.type == "cpu":
+        return nn_tiles_cross_plain(rows_t, fe_rows, cols_t, fe_cols,
+                                    orig_ids, n_valid, skip_words,
+                                    row_block, col_block)
+    n_dim, r_pad = rows_t.shape
+    n_pad = cols_t.shape[1]
+    words_per_row = -(-(n_pad // col_block) // 32)
+    _check_cuda(rows_t, [
+        ("fe_rows", fe_rows, torch.float32, (1, r_pad)),
+        ("cols_t", cols_t, torch.float32, (n_dim, n_pad)),
+        ("fe_cols", fe_cols, torch.float32, (1, n_pad)),
+        ("orig_ids", orig_ids, torch.int32, (1, n_pad)),
+        ("skip_words", skip_words, torch.int32,
+         ((r_pad // row_block) * words_per_row,))], [("n_valid", n_valid)])
+    _grid(rows_t, cols_t, row_block, col_block)
+    keys = nn_keys_init(r_pad, rows_t.device)
+    if r_pad == 0 or n_pad == 0:
+        return _row_results(keys)
+    with torch.cuda.device(rows_t.device):
+        _run("ck_nn_tiles", "nn_tiles", _ptr(rows_t), r_pad, _ptr(fe_rows),
+             _ptr(cols_t), n_pad, n_dim, _ptr(fe_cols), _ptr(orig_ids),
+             int(n_valid), _ptr(skip_words), words_per_row, row_block,
+             col_block, _ptr(keys), _stream(rows_t.device))
+    return _row_results(keys)
+
+
+def nn_tiles(coords_t, fe, orig_ids, n_valid, skip_words,
+             row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
+    """All-pairs NN search of one frame matrix; see
+    :func:`nn_tiles_cross`."""
+    return nn_tiles_cross(coords_t, fe, coords_t, fe, orig_ids, n_valid,
+                          skip_words, row_block, col_block)

@@ -6,7 +6,8 @@ orders, masks and tile sets equal the reference's; the block bounding-box
 distances are computed on the device as plain torch ops. Masks stay bool
 arrays and tile lists are flat: the chunking, power-of-two buckets and
 pads of the JAX package exist only for XLA compile shapes and TPU scalar
-memory.
+memory. The dense-grid kernels take their mask as the JAX package's
+bit-packed skip words.
 
 Pruning is exact: a tile is skipped only when its bounding-box distance
 lower bound exceeds the threshold.
@@ -154,6 +155,62 @@ def band_mask(n_row_blocks, n_col_blocks, row_block, col_block, half_width):
     col_hi = col_lo + col_block
     return ((col_hi[None, :] >= row_centers[:, None] - half_width)
             & (col_lo[None, :] <= row_centers[:, None] + half_width))
+
+
+# -- skip words of the dense-grid kernels (kernels.pops_tiles, nn_tiles) -----
+#
+# Bit j of row block i is bit j % 32 of word i * words_per_row + j // 32
+# (bit 31 makes the word negative); a set bit skips the tile.
+
+WORD_BITS = 32
+
+
+def pack_skip_words(skip_bool):
+    """Pack a (n_row_blocks, n_col_blocks) boolean skip matrix into flat
+    int32 words, ``words_per_row`` words per row block; returns (words,
+    words_per_row)."""
+    nrb, ncb = skip_bool.shape
+    words_per_row = -(-ncb // WORD_BITS)
+    padded = np.zeros((nrb, words_per_row * WORD_BITS), dtype=bool)
+    padded[:, :ncb] = skip_bool
+    bits = padded.reshape(nrb, words_per_row, WORD_BITS)
+    weights = (1 << np.arange(WORD_BITS, dtype=np.uint64))
+    words = (bits.astype(np.uint64) * weights).sum(axis=2)
+    return words.astype(np.uint32).view(np.int32).reshape(-1), words_per_row
+
+
+def no_skip_words(n_row_blocks, n_col_blocks):
+    words_per_row = -(-n_col_blocks // WORD_BITS)
+    return (np.zeros(n_row_blocks * words_per_row, dtype=np.int32),
+            words_per_row)
+
+
+def radius_skip_words(coords_padded, row_block, col_block, thresh2,
+                      strict=True):
+    """Skip tile (i, j) iff its bbox distance > thresh2 (>= with
+    strict=False, for a strict '<' adjacency)."""
+    rmin, rmax = block_bboxes(coords_padded, row_block)
+    cmin, cmax = block_bboxes(coords_padded, col_block)
+    d2 = bbox_dist2(rmin, rmax, cmin, cmax)
+    skip = d2 > thresh2 if strict else d2 >= thresh2
+    return pack_skip_words(skip)
+
+
+def band_skip_words(n_row_blocks, n_col_blocks, row_block, col_block,
+                    half_width):
+    """Skip everything except the diagonal band of ``band_mask``."""
+    return pack_skip_words(~band_mask(n_row_blocks, n_col_blocks,
+                                      row_block, col_block, half_width))
+
+
+def ub_skip_words(coords_padded, row_block, col_block, row_ub):
+    """Skip tile (i, j) iff its bbox distance strictly exceeds the row
+    block's upper bound ``row_ub[i]`` (+inf keeps the whole row block)."""
+    rmin, rmax = block_bboxes(coords_padded, row_block)
+    cmin, cmax = block_bboxes(coords_padded, col_block)
+    d2 = bbox_dist2(rmin, rmax, cmin, cmax)
+    skip = d2 > np.asarray(row_ub, dtype=np.float32)[:, None]
+    return pack_skip_words(skip)
 
 
 def tile_list(active):

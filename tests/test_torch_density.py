@@ -245,7 +245,35 @@ def test_cli_multi_radius_and_lumping_radius(tmp_path, monkeypatch):
     head = open("pl").read()
     assert "#@   lumping_radius = %.5f" % lump in head
     assert "#@   clustering_radius = %.5f" % lump in head
-    # --check belongs to the JAX package only
-    with pytest.raises(SystemExit):
-        tcli.main(["density", "-f", "c.dat", "-r", "0.2", "-p", "p2",
-                   "--check"])
+
+
+def _data_lines(path):
+    """The file's lines without the plain '#' header (argv, time stamp)."""
+    with open(path) as fh:
+        return [ln for ln in fh if ln.startswith("#@")
+                or not ln.startswith("#")]
+
+
+def test_cli_check_mode(tmp_path, monkeypatch, capsys):
+    """--check recomputes populations and neighbours with the dense plain
+    versions, logs how many entries differ, and leaves the files as they
+    are without it."""
+    coords = _blobs(300, 2, seed=71)
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    monkeypatch.chdir(tmp_path)
+    np.savetxt("c.dat", coords, fmt="%.6f")
+    outs = {}
+    for tag, extra in (("plain", []), ("check", ["--check"])):
+        argv = ["density", "-f", "c.dat", "-r", "0.2", "-p", f"pop_{tag}",
+                "-d", f"fe_{tag}", "-b", f"nn_{tag}", "-v"] + extra
+        assert tcli.main(argv) == 0
+        outs[tag] = capsys.readouterr().out
+    for name in ("pop", "fe", "nn"):
+        assert _data_lines(f"{name}_check") == _data_lines(f"{name}_plain")
+    assert "[check]" not in outs["plain"]
+    for kind, total in (("pops", 300), ("nn", 600)):
+        lines = [ln for ln in outs["check"].splitlines()
+                 if f"[check] {kind}:" in ln]
+        assert len(lines) == 1, outs["check"]
+        bad, n = lines[0].split(":")[1].split()[0].split("/")
+        assert int(n) == total and int(bad) <= 0.01 * total

@@ -5,8 +5,9 @@ pinned the same way in tests/test_torch_symmetric.py.
 
 On the CPU every wrapper takes its plain PyTorch version, so these tests
 pin the plain versions -- the oracles the CUDA kernels are held to -- to
-the reference kernels. The tests marked ``cuda`` hold all six CUDA kernels
-to their plain versions on the card and skip without one.
+the reference kernels. The tests marked ``cuda`` hold the six tile-list
+CUDA kernels to their plain versions on the card and skip without one
+(the two skip-word kernels: tests/test_torch_skip_words.py).
 
 Counts, ids and labels must be exact. Distances must be bit-equal: both
 sides compute the plain fma chain acc = fma(d_k, d_k, acc) from zero.
@@ -156,6 +157,12 @@ def test_wrappers_refuse_other_devices():
         kernels.label_min_bidir(ct, torch.zeros(CB, dtype=torch.int32,
                                                 device="meta"),
                                 4, 0.1, ti, ti, ti, RB, CB)
+    with pytest.raises(ValueError):
+        kernels.pops_tiles(ct, torch.zeros(1, device="meta"), 4, ti, RB, CB)
+    with pytest.raises(ValueError):
+        kernels.nn_tiles(ct, torch.zeros((1, CB), device="meta"),
+                         torch.zeros((1, CB), dtype=torch.int32,
+                                     device="meta"), 4, ti, RB, CB)
 
 
 # -- on the card ---------------------------------------------------------------
@@ -210,7 +217,8 @@ def test_cuda_kernels_match_plain(d, rb, cb):
     assert torch.equal(l1, l2)
     assert kernels.LAUNCHES == {"pops_bidir": 1, "nn_bidir": 1,
                                 "label_min_bidir": 1, "pops_sparse": 0,
-                                "nn_sparse": 0, "label_min_sparse": 0}
+                                "nn_sparse": 0, "label_min_sparse": 0,
+                                "pops_tiles": 0, "nn_tiles": 0}
 
 
 @pytest.mark.cuda
@@ -275,4 +283,5 @@ def test_cuda_sparse_kernels_match_plain(d, rb, cb):
     assert (kernels.label_min_sparse(*largs) < IMAX).any()
     assert kernels.LAUNCHES == {"pops_bidir": 0, "nn_bidir": 0,
                                 "label_min_bidir": 0, "pops_sparse": 1,
-                                "nn_sparse": 1, "label_min_sparse": 2}
+                                "nn_sparse": 1, "label_min_sparse": 2,
+                                "pops_tiles": 0, "nn_tiles": 0}
