@@ -38,10 +38,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      nn ids and nn distances (bit for bit) must equal phase 6's
      bidirectional run.
 
-The line before the last holds the kernels' JSON record (launches of the
-bidirectional kernels from phase 5, of the row-side kernels from phase
-6's symmetric run, of the dense-grid kernels from phase 7); the last line
-is {"ok": true, "device": {...}}. It imports nothing of JAX.
+  8. every kernel on the calls its 2^20 path made (the bidirectional
+     kernels: phase 5; the row-side ones: phase 6's symmetric run; the
+     dense-grid ones: phase 7), recorded during those phases and replayed:
+     kernel time (CUDA events, summed over the calls), its plain version
+     on the same inputs (exact), launches, evaluated pairs and the bound,
+     the larger of 3 D flops per pair over the FP32 peak and the bytes
+     over the HBM rate, with the card's name and power limit.
+
+The line before the last holds the kernels' JSON record, from phase 8;
+the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
+and nothing of the JAX package.
 """
 
 import contextlib
@@ -120,10 +127,11 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"] + card,
         capture_output=True, text=True, check=True).stdout.strip()
-    print("[device]", smi.splitlines()[0])
+    smi = smi.splitlines()[0]
+    print("[device]", smi)
     print(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda},"
           f" {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-    return torch
+    return torch, smi
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -161,7 +169,7 @@ def max_abs_err(got, want):
     return float((got.double() - want.double()).abs().max())
 
 
-def hold(torch, rec, name, what, kernel, plain, compare):
+def hold(torch, name, what, kernel, plain, compare):
     """Time ``kernel`` and ``plain`` (the kernel's plain version) on the
     same inputs, compare their results with ``compare`` -> (mismatches,
     max abs err, text), print one line and fail on any mismatch. Returns
@@ -173,7 +181,6 @@ def hold(torch, rec, name, what, kernel, plain, compare):
           f" {plain_ms:.3f} ms")
     if bad:
         fail(f"{name} disagrees with its plain version")
-    rec.setdefault(name, (err, ms, plain_ms))
     return want
 
 
@@ -236,7 +243,6 @@ def phase_kernels(torch):
     coords = synthetic_fel(N_KERNELS, DIM, seed=0)
     eng = DensityEngine(coords, device=dev)
     rb, cb, n = eng.row_block, eng.col_block, eng.n
-    rec = {}
 
     def put(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
@@ -247,14 +253,14 @@ def phase_kernels(torch):
     name, ti, tj, rmask = eng.pops_plan([RADIUS], bidir=True)
     ct = eng.coords_t(name)
     args = (r2, n, put(ti), put(tj), put(rmask), rb, cb)
-    want = hold(torch, rec, "pops_bidir", f"{len(ti)} tiles",
+    want = hold(torch, "pops_bidir", f"{len(ti)} tiles",
                 lambda: kernels.pops_bidir(ct, *args),
                 lambda: kernels.pops_bidir_plain(ct, *args),
                 exact("count"))
     name_s, ti_s, tj_s, rm_s = eng.pops_plan([RADIUS], bidir=False)
     ct_s = eng.coords_t(name_s)
     args = (ct_s, ct_s, r2, n, put(ti_s), put(tj_s), put(rm_s), rb, cb)
-    hold(torch, rec, "pops_sparse", f"{len(ti_s)} tiles",
+    hold(torch, "pops_sparse", f"{len(ti_s)} tiles",
          lambda: kernels.pops_sparse(*args),
          lambda: kernels.pops_sparse_plain(*args), exact("count"))
 
@@ -275,12 +281,12 @@ def phase_kernels(torch):
         return fn(*lead, ct_m, fe_l, oid, n, bti, btj,
                   kernels.nn_keys_init(eng.n_pad, dev), rb, cb)
 
-    want = hold(torch, rec, "nn_bidir", f"{len(bti)} tiles",
+    want = hold(torch, "nn_bidir", f"{len(bti)} tiles",
                 lambda: nn_run(kernels.nn_bidir),
                 lambda: nn_run(kernels.nn_bidir_plain), keys_equal(torch, n))
     bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band))
     rows = (ct_m, fe_l, oid)
-    hold(torch, rec, "nn_sparse", f"{len(bti)} tiles",
+    hold(torch, "nn_sparse", f"{len(bti)} tiles",
          lambda: nn_run(kernels.nn_sparse, *rows),
          lambda: nn_run(kernels.nn_sparse_plain, *rows),
          keys_equal(torch, n))
@@ -290,7 +296,7 @@ def phase_kernels(torch):
     _, padded = eng._padded("morton")
     nrb, ncb = eng.n_pad // rb, eng.n_pad // cb
     words = put(pruning.radius_skip_words(padded, rb, cb, r2.item())[0])
-    hold(torch, rec, "pops_tiles", kept_cells(words, nrb, ncb),
+    hold(torch, "pops_tiles", kept_cells(words, nrb, ncb),
          lambda: kernels.pops_tiles(ct_m, r2, n, words, rb, cb),
          lambda: kernels.pops_tiles_cross_plain(ct_m, ct_m, r2, n, words, rb,
                                                 cb),
@@ -302,7 +308,7 @@ def phase_kernels(torch):
 
     words = put(pruning.band_skip_words(nrb, ncb, rb, cb,
                                         NN_BAND_BLOCKS * cb)[0])
-    band = hold(torch, rec, "nn_tiles", "band, " + kept_cells(words, nrb, ncb),
+    band = hold(torch, "nn_tiles", "band, " + kept_cells(words, nrb, ncb),
                 lambda: kernels.nn_tiles(ct_m, fe_r, oid_r, n, words, rb, cb),
                 lambda: nn_tiles_run(kernels.nn_tiles_cross_plain, words),
                 rows_equal(torch))
@@ -310,7 +316,7 @@ def phase_kernels(torch):
     ub[n:] = 0.0  # pads need no neighbour
     row_ub = ub.reshape(nrb, rb).amax(dim=1).cpu().numpy()
     words = put(pruning.ub_skip_words(padded, rb, cb, row_ub)[0])
-    hold(torch, rec, "nn_tiles",
+    hold(torch, "nn_tiles",
          "band bounds, " + kept_cells(words, nrb, ncb),
          lambda: nn_tiles_run(kernels.nn_tiles_cross, words),
          lambda: nn_tiles_run(kernels.nn_tiles_cross_plain, words),
@@ -332,7 +338,7 @@ def phase_kernels(torch):
     sti, stj = put(tiles[0]), put(tiles[1])
     dirty = torch.ones(len(tiles[0]), dtype=torch.int32, device=dev)
     largs = (seng.coords_t, labels, nb, md2, sti, stj, dirty, rb, cb)
-    hold(torch, rec, "label_min_bidir", f"{len(tiles[0])} tiles",
+    hold(torch, "label_min_bidir", f"{len(tiles[0])} tiles",
          lambda: kernels.label_min_bidir(*largs),
          lambda: kernels.label_min_bidir_plain(*largs),
          exact("label"))
@@ -346,11 +352,10 @@ def phase_kernels(torch):
              (torch.arange(ncb, device=dev) % 3 == 0).to(torch.int32))):
         largs = (seng.coords_t, seng.coords_t, labels, nb, md2, sti, stj, 0,
                  dirty, rb, cb)
-        hold(torch, rec, "label_min_sparse", f"{len(tiles[0])} tiles, {what}",
+        hold(torch, "label_min_sparse", f"{len(tiles[0])} tiles, {what}",
              lambda: kernels.label_min_sparse(*largs),
              lambda: kernels.label_min_sparse_plain(*largs),
              exact("proposal"))
-    return rec
 
 
 # -- phases 4 and 5 ------------------------------------------------------------
@@ -678,25 +683,191 @@ def phase_skip_words(torch, want_pops, want_nn):
     return launches
 
 
+# -- phase 8 -------------------------------------------------------------------
+
+# the wrapper that launches each kernel (the dense-grid kernels launch in
+# their cross forms), and the argument a wrapper updates in place
+WRAPPERS = {name: name for name in KERNELS}
+WRAPPERS.update(pops_tiles="pops_tiles_cross", nn_tiles="nn_tiles_cross")
+IN_PLACE = {"nn_bidir": 6, "nn_sparse": 9}
+# FP32 peak outside the tensor cores and HBM3 rate of an H100 SXM at
+# 700 W (the data sheet's dense figures)
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+
+
+@contextlib.contextmanager
+def record_calls(names):
+    """Record every call of the named kernels' wrappers while the block
+    runs: a copy of each tensor argument, taken before the call, so that
+    a replay sees the inputs the path gave the kernel. Yields
+    {name: [(args, kwargs), ...]}."""
+    import torch
+    from clustering_tpu_torch.ops import kernels
+    calls = {name: [] for name in names}
+    saved = {}
+
+    def copy(a):
+        return a.clone() if isinstance(a, torch.Tensor) else a
+
+    for name in names:
+        attr = WRAPPERS[name]
+        saved[attr] = fn = getattr(kernels, attr)
+
+        def rec(*args, _fn=fn, _name=name, **kw):
+            calls[_name].append((tuple(copy(a) for a in args),
+                                 {k: copy(v) for k, v in kw.items()}))
+            return _fn(*args, **kw)
+        setattr(kernels, attr, rec)
+    try:
+        yield calls
+    finally:
+        for attr, fn in saved.items():
+            setattr(kernels, attr, fn)
+
+
+def replay(torch, name, fn, calls):
+    """Run ``fn`` on every recorded call of kernel ``name`` (in-place
+    arguments fresh from the record); returns (outputs, device ms summed
+    over the calls). Each call is timed with CUDA events behind a short
+    device sleep, so the host's enqueue time stays out of the window."""
+    outs, ms = [], 0.0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for args, kw in calls:
+        args = list(args)
+        if name in IN_PLACE:
+            args[IN_PLACE[name]] = args[IN_PLACE[name]].clone()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        out = fn(*args, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms += start.elapsed_time(end)
+        outs.append(out)
+    return outs, ms
+
+
+def _tensors(out):
+    return list(out) if isinstance(out, (tuple, list)) else [out]
+
+
+def compare_outputs(torch, got, want):
+    """(mismatching elements, max abs err over finite floats) of two lists
+    of call outputs; floats compare bit for bit."""
+    bad, err = 0, 0.0
+    for g_call, w_call in zip(got, want):
+        for g, w in zip(_tensors(g_call), _tensors(w_call)):
+            if g.dtype.is_floating_point:
+                bad += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                fin = torch.isfinite(g) & torch.isfinite(w)
+                err = max(err, max_abs_err(g[fin], w[fin]))
+            else:
+                bad += int((g != w).sum())
+                err = max(err, max_abs_err(g, w))
+    return bad, err
+
+
+def evaluated_pairs(name, args):
+    """Pairs one recorded call evaluates: the tiles or grid cells it
+    sweeps (label-min: only the dirty ones) x row_block x col_block."""
+    from clustering_tpu_torch.ops import kernels
+    rb, cb = args[-2], args[-1]
+    if name in ("pops_tiles", "nn_tiles"):
+        words = args[4] if name == "pops_tiles" else args[6]
+        cols_t = args[2] if name == "nn_tiles" else args[1]
+        nrb, ncb = args[0].shape[1] // rb, cols_t.shape[1] // cb
+        tiles = len(kernels.kept_tiles(words, nrb, ncb)[0])
+    elif name in ("pops_bidir", "pops_sparse"):
+        ti, tj, rmask = args[-5], args[-4], args[-3]
+        tiles = int(((tj >= 0) & (rmask != 0)).sum())
+    elif name in ("nn_bidir", "nn_sparse"):
+        tiles = int((args[-4] >= 0).sum())
+    elif name == "label_min_bidir":
+        tiles = int((args[-3] != 0).sum())
+    else:  # label_min_sparse: ti, tj, row_block_offset, dirty
+        tj, dirty = args[-5], args[-3]
+        tiles = int(((tj >= 0) & (dirty[tj.clamp_min(0).long()] != 0)).sum())
+    return tiles * rb * cb
+
+
+def moved_bytes(args, outs):
+    """Bytes a call must move: each distinct input tensor read once, each
+    output written once."""
+    import torch
+    seen, total = set(), 0
+    for a in args:
+        if isinstance(a, torch.Tensor) and a.data_ptr() not in seen:
+            seen.add(a.data_ptr())
+            total += a.numel() * a.element_size()
+    return total + sum(t.numel() * t.element_size() for t in _tensors(outs))
+
+
+def phase_main_path_kernels(torch, calls, launches, smi):
+    """Each kernel on the calls its 2^20 path made (bidirectional: phase 5;
+    row-side: phase 6's symmetric run; dense-grid: phase 7), replayed:
+    kernel time, its plain version on the same inputs (exact), evaluated
+    pairs and the bound. Returns the kernels' JSON records."""
+    from clustering_tpu_torch.ops import kernels
+    records = []
+    print(f"[path kernels] {smi}, N={N_MAIN} D={DIM}; bound = max(3 D flops"
+          f" per pair / {PEAK_FLOPS / 1e12:.0f} TFLOP/s, bytes /"
+          f" {PEAK_BYTES / 1e12:.2f} TB/s)")
+    for name in KERNELS:
+        rec = calls[name]
+        fn = getattr(kernels, WRAPPERS[name])
+        plain = getattr(kernels, WRAPPERS[name] + "_plain")
+        replay(torch, name, fn, rec)  # warm-up
+        got, ms = replay(torch, name, fn, rec)
+        want, plain_ms = replay(torch, name, plain, rec)
+        bad, err = compare_outputs(torch, got, want)
+        if bad:
+            fail(f"{name} disagrees with its plain version on its path's"
+                 f" calls ({bad} elements)")
+        pairs = sum(evaluated_pairs(name, args) for args, _ in rec)
+        n_dim = rec[0][0][0].shape[0]
+        t_ops = pairs * 3 * n_dim / PEAK_FLOPS * 1e3
+        t_bytes = sum(moved_bytes(args, out) for (args, _), out
+                      in zip(rec, got)) / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        print(f"[path kernels] {name}: {launches[name]} launches"
+              f" ({len(rec)} calls), {pairs} pairs,"
+              f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound"
+              f" {bound:.3f} ms ({by}), share {bound / ms:.3f}; 0"
+              " mismatches")
+        records.append({
+            "name": name, "route": "cuda",
+            "source": f"clustering_tpu_torch/csrc/{name}.cu",
+            "replaces": KERNELS[name], "launches": launches[name],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None,
+            "pairs": pairs})
+        del got, want
+    return records
+
+
 def main():
-    torch = phase_device()
+    torch, smi = phase_device()
     phase_build()
-    rec = phase_kernels(torch)
+    phase_kernels(torch)
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice(tmp)
-        launches = phase_main(torch, tmp)
-    sym_launches, pops_b, nn_b = phase_symmetric(torch)
+        with record_calls(BIDIR_KERNELS) as calls:
+            launches = phase_main(torch, tmp)
+    with record_calls(SPARSE_KERNELS) as sym_calls:
+        sym_launches, pops_b, nn_b = phase_symmetric(torch)
+    calls.update(sym_calls)
     for name in SPARSE_KERNELS:
         launches[name] = sym_launches[name]
-    tiles_launches = phase_skip_words(torch, pops_b, nn_b)
+    with record_calls(TILES_KERNELS) as tiles_calls:
+        tiles_launches = phase_skip_words(torch, pops_b, nn_b)
+    calls.update(tiles_calls)
     for name in TILES_KERNELS:
         launches[name] = tiles_launches[name]
-    record = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"clustering_tpu_torch/csrc/{name}.cu",
-         "replaces": KERNELS[name], "launches": launches[name],
-         "max_abs_err": rec[name][0], "ms": rec[name][1],
-         "plain_ms": rec[name][2]} for name in KERNELS]}
+    record = {"kernels": phase_main_path_kernels(torch, calls, launches,
+                                                 smi)}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,19 +1,26 @@
 """clustering_tpu_torch -- the density pipeline of clustering_tpu on
-PyTorch, with its three O(N^2) tile sweeps as hand-written CUDA kernels
-for the NVIDIA H100 (sm_90a).
+PyTorch, with its O(N^2) tile sweeps as hand-written CUDA kernels for the
+NVIDIA H100 (sm_90a).
 
 The JAX package ``clustering_tpu`` is the reference; this package never
-imports jax. It reuses the reference's jax-free host code (the CLI parser,
-file formats and the six numpy-only modes) and keeps its module names:
+imports it, nor jax. It keeps its own copies of the reference's host code
+(the CLI parser, file formats, the native text and xtc codecs and the six
+numpy-only modes) under the same module names:
 
-  cli        -- mode dispatcher (density here, the host modes reused)
-  models/    -- the density driver
+  cli        -- mode dispatcher (density on the device, six host modes)
+  models/    -- per-mode drivers
   ops/       -- planning (pruning), kernels (wrappers, plain versions,
                 launch counts), engines (populations, neighbours,
                 screening)
   csrc/      -- CUDA C++ sources of the kernels, built by ops/_build.py
-  utils/     -- stage timer
+  native/    -- C++ text and xtc codecs, built by make at first use
+  utils/     -- file formats, logging, stage timer
 """
+
+# the JAX package's version, so that both write the same file headers
+__version__ = "0.1.0"
+
+VERSION_STRING = "v" + __version__
 
 _API_NAMES = ("populations", "free_energies", "nearest_neighbors",
               "screening_series", "Neighborhoods")

@@ -1,20 +1,292 @@
 """CLI dispatcher of the PyTorch port: ``python -m clustering_tpu_torch
 MODE [options]``.
 
-The parser is the JAX package's (``clustering_tpu.cli.build_parser``,
-which imports no jax), so flags and defaults are identical. ``density``
-runs on the device named by ``CLUSTERING_TORCH_DEVICE`` (default
-``cuda``; asking for CUDA where none is available raises). The six host
-modes run the JAX package's numpy drivers as they are.
+The parser is a copy of the JAX package's (same modes, flag names,
+defaults and required/optional semantics, after the reference's
+src/clustering.cpp:67-526). ``density`` runs on the device named by
+``CLUSTERING_TORCH_DEVICE`` (default ``cuda``; asking for CUDA where none
+is available raises). The six host modes run the port's own copies of the
+JAX package's numpy drivers (``models/``), which write the same files.
 """
 
+import argparse
 import os
 import sys
 
-from clustering_tpu import VERSION_STRING
-from clustering_tpu.cli import GENERAL_HELP, _limit_host_threads, build_parser
-from clustering_tpu.utils import io
-from clustering_tpu.utils.logger import logger, set_verbose
+from . import VERSION_STRING
+from .utils import io
+from .utils.logger import logger, set_verbose
+
+GENERAL_HELP = f"""
+         ~~~ clustering-tpu {VERSION_STRING} ~~~
+
+clustering-tpu: a TPU-native classification framework for MD data
+(format- and semantics-compatible rebuild of moldyn/clustering v1.3.2)
+
+modes:
+  density: run density clustering
+  network: build network from density clustering results
+  mpp:     run MPP (Most Probable Path) clustering
+           (based on density-results)
+  coring:  boundary corrections for clustering results.
+  noise:   defining and dynamically reassigning noise.
+  filter:  filter phase space (e.g. dihedrals) for given state
+  stats:   give statistics of state trajectory
+
+usage:
+  clustering MODE --option1 --option2 ...
+
+for a list of available options per mode, run with '-h' option, e.g.
+  clustering density -h
+
+this binary is parallelized with PyTorch and CUDA on an NVIDIA GPU
+"""
+
+
+def _add_common(p):
+    p.add_argument("-n", "--nthreads", type=int, default=0,
+                   help="number of host threads (caps the native text-IO"
+                        " parser and BLAS pools; device compute is"
+                        " controlled by the JAX runtime). 0 = auto.")
+    p.add_argument("-v", "--verbose", action="store_true",
+                   help="verbose mode: print runtime information to STDOUT.")
+
+
+def _add_concat(p):
+    p.add_argument("--concat-nframes", dest="concat_nframes", type=int,
+                   help="input (parameter): no. of frames per (equally"
+                        " sized) sub-trajectory for concatenated trajectory"
+                        " files.")
+    p.add_argument("--concat-limits", dest="concat_limits",
+                   help="input (file): file with sizes of individual (not"
+                        " equally sized) sub-trajectories for concatenated"
+                        " trajectory files. e.g.: for a concatenated"
+                        " trajectory of three chunks of sizes 100, 50 and"
+                        " 300 frames: '100 50 300'")
+
+
+def build_parser():
+    parser = argparse.ArgumentParser(
+        prog="clustering", add_help=False,
+        description=GENERAL_HELP,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = parser.add_subparsers(dest="mode")
+
+    # density
+    d = sub.add_parser(
+        "density",
+        description="perform clustering of MD data based on phase space"
+                    " densities.\ndensities are approximated by counting"
+                    " neighboring frames inside\na n-dimensional hypersphere"
+                    " of specified radius.\ndistances are measured with"
+                    " n-dim P2-norm.",
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    d.add_argument("-f", "--file", required=True,
+                   help="input (required): phase space coordinates (space"
+                        " separated ASCII).")
+    d.add_argument("-r", "--radius", type=float,
+                   help="parameter: hypersphere radius. If not used, the"
+                        " lumping radius will be used instead.")
+    d.add_argument("-T", "--threshold-screening", dest="threshold_screening",
+                   type=float, nargs="*",
+                   help="parameters: screening of free energy landscape."
+                        " format: FROM STEP TO; e.g.: '-T 0.1 0.1 11.1'."
+                        " set -T -1 for default values: FROM=0.1, STEP=0.1,"
+                        " TO=MAX_FE. parameters may be given partially."
+                        " for threshold-screening, --output denotes the"
+                        " basename only; output files will have the current"
+                        " threshold limit appended to the given filename.")
+    d.add_argument("-o", "--output",
+                   help="output (optional): clustering information.")
+    d.add_argument("-i", "--input",
+                   help="input (optional): initial state definition.")
+    d.add_argument("-R", "--radii", type=float, nargs="+",
+                   help="parameter: list of radii for population/free energy"
+                        " calculations (i.e. compute populations/free"
+                        " energies for several radii in one go).")
+    d.add_argument("-p", "--population",
+                   help="output (optional): population per frame (if -R is"
+                        " set: this defines only the basename).")
+    d.add_argument("-d", "--free-energy", dest="free_energy",
+                   help="output (optional): free energies per frame (if -R"
+                        " is set: this defines only the basename).")
+    d.add_argument("-D", "--free-energy-input", dest="free_energy_input",
+                   help="input (optional): reuse free energy info.")
+    d.add_argument("-b", "--nearest-neighbors", dest="nearest_neighbors",
+                   help="output (optional): nearest neighbor info.")
+    d.add_argument("-B", "--nearest-neighbors-input",
+                   dest="nearest_neighbors_input",
+                   help="input (optional): reuse nearest neighbor info.")
+    d.add_argument("--check", action="store_true",
+                   help="validation mode: run every device kernel on both"
+                        " the Pallas and XLA backends and report any"
+                        " disagreement (the functional-purity analog of the"
+                        " reference's sanitizer builds).")
+    _add_common(d)
+
+    # mpp
+    m = sub.add_parser(
+        "mpp",
+        description="performs a most probable path (MPP) clustering based"
+                    " on the given lag time.")
+    m.add_argument("-s", "--states", required=True,
+                   help="(required): file with state information (i.e."
+                        " clustered trajectory)")
+    m.add_argument("-D", "--free-energy-input", dest="free_energy_input",
+                   required=True,
+                   help="input (required): reuse free energy info.")
+    m.add_argument("-l", "--lagtime", type=int, required=True,
+                   help="input (required): lagtime in units of frame"
+                        " numbers. Note: Lagtime should be greater than the"
+                        " coring time/ smallest timescale.")
+    m.add_argument("--qmin-from", dest="qmin_from", type=float, default=0.01,
+                   help="initial Qmin value (default: 0.01).")
+    m.add_argument("--qmin-to", dest="qmin_to", type=float, default=1.0,
+                   help="final Qmin value (default: 1.00).")
+    m.add_argument("--qmin-step", dest="qmin_step", type=float, default=0.01,
+                   help="Qmin stepping (default: 0.01).")
+    _add_concat(m)
+    m.add_argument("--tprob",
+                   help="input (file): initial transition probability"
+                        " matrix. -l still needs to be given, but will be"
+                        " ignored. Format: three space-separated columns"
+                        " 'state_from' 'state_to' 'probability'")
+    m.add_argument("-o", "--output", default="mpp",
+                   help="output (optional): basename for output files"
+                        " (default: 'mpp').")
+    _add_common(m)
+
+    # network
+    n = sub.add_parser("network",
+                       description="create a network from screening data.")
+    n.add_argument("-p", "--minpop", type=int, required=True,
+                   help="(required): minimum population of node to be"
+                        " considered for network.")
+    n.add_argument("-b", "--basename", default="clust",
+                   help="(optional): basename of input files (default:"
+                        " clust).")
+    n.add_argument("-o", "--output", default="network",
+                   help="(optional): basename of output files (default:"
+                        " network).")
+    n.add_argument("--min", type=float, default=0.1,
+                   help="(optional): minimum free energy (default: 0.10).")
+    n.add_argument("--max", type=float, default=0.0,
+                   help="(optional): maximum free energy (default: 0; i.e."
+                        " max. available).")
+    n.add_argument("--step", type=float, default=0.1,
+                   help="(optional): free energy stepping (default: 0.10).")
+    n.add_argument("--network-html", dest="network_html",
+                   action="store_true",
+                   help="Generate html visualization of fe tree.")
+    n.add_argument("-v", "--verbose", action="store_true",
+                   help="verbose mode: print runtime information to STDOUT.")
+
+    # filter
+    f = sub.add_parser(
+        "filter",
+        description="filter phase space (e.g. dihedral angles, cartesian"
+                    " coords, etc.) for given state.")
+    f.add_argument("-s", "--states", required=True,
+                   help="(required): file with state information (i.e."
+                        " clustered trajectory).")
+    f.add_argument("-c", "--coords", required=True,
+                   help="(required): file with coordinates (either plain"
+                        " ASCII or GROMACS' xtc).")
+    f.add_argument("-o", "--output",
+                   help="basename of filtered data output (extended by e.g."
+                        " basename.state5 for state 5) keeping file"
+                        " extension of input. If not specified, the input"
+                        " name will be used.")
+    f.add_argument("-S", "--selected-states", dest="selected_states",
+                   type=int, nargs="+",
+                   help="state ids of selected states. Default all states.")
+    f.add_argument("--every-nth", dest="every_nth", type=int, default=1,
+                   help="Take only every nth frame. Default all frames.")
+    f.add_argument("--nRandom", dest="n_random", type=int,
+                   help="Extract n random frames for each state. The output"
+                        " is sorted by indices.")
+    f.add_argument("-v", "--verbose", action="store_true",
+                   help="verbose mode: print runtime information to STDOUT.")
+
+    # stats
+    s = sub.add_parser(
+        "stats",
+        description="list statistics and population of state trajectory.")
+    s.add_argument("-s", "--states", required=True,
+                   help="(required): file with state information (i.e."
+                        " clustered trajectory).")
+    _add_concat(s)
+
+    # coring
+    c = sub.add_parser(
+        "coring",
+        description="compute boundary corrections for clustering results.")
+    c.add_argument("-s", "--states", required=True,
+                   help="(required): file with state information (i.e."
+                        " clustered trajectory)")
+    c.add_argument("-w", "--windows", required=True,
+                   help="(required): either single integer for same window"
+                        " for all states or file with window sizes. format"
+                        " is space-separated lines of 'STATE_ID"
+                        " WINDOW_SIZE'. use * as STATE_ID to match all"
+                        " (other) states.")
+    c.add_argument("-o", "--output", help="(optional): cored trajectory")
+    c.add_argument("-d", "--distribution",
+                   help="(optional): write waiting time distributions to"
+                        " file.")
+    c.add_argument("--cores",
+                   help="(optional): write core information to file, i.e."
+                        " trajectory with state name if in core region or"
+                        " -1 if not in core region")
+    _add_concat(c)
+    c.add_argument("--iterative", action="store_true",
+                   help="increase coring time frame by frame.")
+    c.add_argument("-v", "--verbose", action="store_true",
+                   help="verbose mode: print runtime information to STDOUT.")
+
+    # noise
+    x = sub.add_parser(
+        "noise",
+        description="defining and dynamically reassigning noise for"
+                    " clustering results.")
+    x.add_argument("-s", "--states", required=True,
+                   help="(required): file with state information (i.e."
+                        " clustered trajectory)")
+    x.add_argument("-o", "--output", required=True,
+                   help="(required): noise-reassigned trajectory")
+    x.add_argument("-b", "--basename", default="clust",
+                   help="(optional): basename of input files (default:"
+                        " clust) used to determine isolated clusters")
+    x.add_argument("-c", "--cmin", type=float, default=0.1,
+                   help="(optional): population (in percent) threshold below"
+                        " which an isolated cluster is assigned as noise."
+                        " (default: 0.1).")
+    x.add_argument("--cores",
+                   help="(optional): write core information to file, i.e."
+                        " trajectory with state name if in core region or"
+                        " -1 if not in core region")
+    _add_concat(x)
+    x.add_argument("-v", "--verbose", action="store_true",
+                   help="verbose mode: print runtime information to STDOUT.")
+
+    return parser
+
+
+def _limit_host_threads(n):
+    """Honor -n/--nthreads on the host side (reference:
+    clustering.cpp:454-459 wires it to omp_set_num_threads): caps the
+    native text-IO thread pool and any BLAS pools numpy has open.
+    Device compute is unaffected: PyTorch and the CUDA kernels own it."""
+    os.environ.setdefault("OMP_NUM_THREADS", str(n))
+    os.environ.setdefault("OPENBLAS_NUM_THREADS", str(n))
+    from .utils import textio_native
+    textio_native.set_max_threads(n)
+    try:
+        import threadpoolctl
+        threadpoolctl.threadpool_limits(limits=n)
+    except Exception:
+        pass  # env vars above still cover pools opened later
+
 
 DEVICE_ENV = "CLUSTERING_TORCH_DEVICE"
 
@@ -53,19 +325,19 @@ def main(argv=None):
             from .models import density
             density.main(args, header, comments_map, device)
         elif args.mode == "mpp":
-            from clustering_tpu.models import mpp
+            from .models import mpp
             mpp.main(args, header, comments_map)
         elif args.mode == "network":
-            from clustering_tpu.models import network
+            from .models import network
             network.main(args, header, comments_map)
         elif args.mode == "coring":
-            from clustering_tpu.models import coring
+            from .models import coring
             coring.main(args, header, comments_map)
         elif args.mode == "noise":
-            from clustering_tpu.models import noise
+            from .models import noise
             noise.main(args, header, comments_map)
         elif args.mode in ("filter", "stats"):
-            from clustering_tpu.models import state_filter
+            from .models import state_filter
             state_filter.main(args, header, comments_map,
                               list_mode=args.mode == "stats")
     except BrokenPipeError:

@@ -13,9 +13,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from clustering_tpu.utils import io
-from clustering_tpu.utils.logger import logger
-
+from ..utils import io
+from ..utils.logger import logger
 from ..ops import density as dops
 from ..ops import neighbors as nops
 from ..ops.engine import DensityEngine

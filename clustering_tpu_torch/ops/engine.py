@@ -14,9 +14,8 @@ import time
 import numpy as np
 import torch
 
-from clustering_tpu.utils import textio_native
-from clustering_tpu.utils.logger import is_verbose, logger
-
+from ..utils import textio_native
+from ..utils.logger import is_verbose, logger
 from . import kernels, pruning
 from .kernels import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK
 from .pairwise import pair_d2

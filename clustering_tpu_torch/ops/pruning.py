@@ -16,7 +16,7 @@ lower bound exceeds the threshold.
 import numpy as np
 import torch
 
-from clustering_tpu.utils import textio_native
+from ..utils import textio_native
 
 
 def morton_order(coords):

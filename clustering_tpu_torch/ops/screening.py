@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from clustering_tpu.utils.logger import is_verbose, logger
+from ..utils.logger import is_verbose, logger
 
 from . import kernels, pruning
 from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, resolve_device

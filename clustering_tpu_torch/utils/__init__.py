@@ -1,1 +1,2 @@
-"""Host utilities of the port (the file formats are the JAX package's)."""
+"""Host utilities of the port: its own copies of the JAX package's file
+formats, logger and native codec loaders, and the stage timer."""

@@ -1,13 +1,13 @@
 """Verbose-gated wall-clock scope for pipeline stages.
 
-Counterpart of ``clustering_tpu.utils.logger.stage_timer`` without the JAX
+Counterpart of the JAX package's ``utils.logger.stage_timer`` without its
 profiler annotation. Device work inside a stage ends in a host readback
 (every stage returns numpy arrays), so the wall includes it.
 """
 
 import time
 
-from clustering_tpu.utils.logger import logger
+from .logger import logger
 
 
 class stage_timer:

@@ -285,3 +285,68 @@ def test_cuda_sparse_kernels_match_plain(d, rb, cb):
                                 "label_min_bidir": 0, "pops_sparse": 1,
                                 "nn_sparse": 1, "label_min_sparse": 2,
                                 "pops_tiles": 0, "nn_tiles": 0}
+
+
+def _bidir_case(d, rb, cb, seed):
+    """Coordinates with duplicate groups (d2 = 0, and equal d2 to the
+    members of a group), n_valid and n_below inside a tile, real frames
+    past n_valid, fe with ties, and an upper-triangular tile list."""
+    rng = np.random.default_rng(seed)
+    n = 2 * max(rb, cb) + cb // 2 + 19
+    block = int(np.lcm(rb, cb))
+    n_pad = -(-(n + 7) // block) * block
+    c = rng.normal(0.0, 0.3, size=(n_pad, d)).astype(np.float32)
+    c[n // 2:] += np.float32(0.8)
+    c[:6] = c[0]
+    c[6:9] = c[n - 1]
+    c[40:44] = c[n // 2]
+    ct = np.ascontiguousarray(c.T)  # frames past n_valid are real here
+    nrb, ncb = n_pad // rb, n_pad // cb
+    act = (rng.random((nrb, ncb)) < 0.8) & pruning.upper_mask(nrb, ncb, rb,
+                                                              cb)
+    ti, tj = np.nonzero(act)
+    fe = (rng.integers(0, 6, size=n_pad) / 4.0).astype(np.float32)
+    oid = rng.permutation(n_pad).astype(np.int32)
+    return n, ct, ti.astype(np.int32), tj.astype(np.int32), fe, oid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64)])
+def test_cuda_redesigned_bidir_kernels_match_plain(d, rb, cb):
+    """The micro-tiled nn_bidir and label_min_bidir against their plain
+    versions (D = 17 takes the runtime-D instance): keys exact (ids, and
+    distances bit for bit) after two accumulating sweeps, the second on
+    a buffer that already holds the first's keys; swept labels exact over
+    a partly dirty list."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n, ct, ti, tj, fe, oid = _bidir_case(d, rb, cb, seed=7 * d + rb)
+    n_pad = ct.shape[1]
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    ct_d, fe_d, oid_d, ti_d, tj_d = map(put, (ct, fe, oid, ti, tj))
+    half = len(ti) // 2
+    kernels.reset_launches()
+    keys = {}
+    for name, fn in (("kernel", kernels.nn_bidir),
+                     ("plain", kernels.nn_bidir_plain)):
+        k = kernels.nn_keys_init(n_pad, dev)
+        fn(ct_d, fe_d, oid_d, n, ti_d[:half], tj_d[:half], k, rb, cb)
+        fn(ct_d, fe_d, oid_d, n, ti_d, tj_d, k, rb, cb)
+        keys[name] = k
+    assert torch.equal(keys["kernel"], keys["plain"])
+    d2, ids = kernels.unpack_keys(keys["plain"][:, oid[:n]])
+    assert bool((d2[0] == 0).sum() == 0) and bool(torch.isfinite(d2).any())
+    labels = put(np.minimum(np.arange(n_pad), np.random.default_rng(d)
+                            .integers(0, n_pad, n_pad)).astype(np.int32))
+    dirty = put((np.random.default_rng(rb).random(len(ti)) < 0.6)
+                .astype(np.int32))
+    n_below = n - 13
+    md2 = np.float32(0.02 * d)
+    largs = (ct_d, labels, n_below, md2, ti_d, tj_d, dirty, rb, cb)
+    got = kernels.label_min_bidir(*largs)
+    want = kernels.label_min_bidir_plain(*largs)
+    assert torch.equal(got, want)
+    assert bool((want != labels).any())
+    assert kernels.LAUNCHES["nn_bidir"] == 2
+    assert kernels.LAUNCHES["label_min_bidir"] == 1

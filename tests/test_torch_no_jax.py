@@ -1,8 +1,11 @@
-"""The PyTorch port never imports jax, and never falls back to the CPU
-when CUDA is asked for."""
+"""The PyTorch port never imports jax or any module of the JAX package
+``clustering_tpu``, and never falls back to the CPU when CUDA is asked
+for."""
 
+import ast
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -12,6 +15,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "clustering_tpu_torch"
+GOLDEN = ROOT / "tests" / "golden"
+
+# sys.modules entries that must stay absent in a process of the port
+FOREIGN = ("[m for m in sys.modules if m in ('jax', 'clustering_tpu')\n"
+           "     or m.startswith(('jax.', 'clustering_tpu.'))]")
 
 
 def _modules():
@@ -26,36 +34,87 @@ def _modules():
     return mods
 
 
+def _python(code, cwd):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(cwd),
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    return proc.stdout
+
+
 def test_every_module_imports_without_jax():
     mods = _modules()
     assert "clustering_tpu_torch.ops.kernels" in mods
+    assert "clustering_tpu_torch.models.state_filter" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import clustering_tpu_torch as p\n"
             "p.populations, p.screening_series\n"
-            "bad = sorted(m for m in sys.modules\n"
-            "             if m == 'jax' or m.startswith('jax.'))\n"
+            f"bad = {FOREIGN}\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(ROOT)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
-                          env=env, capture_output=True, text=True,
-                          timeout=300)
-    assert proc.returncode == 0, proc.stderr
-    assert proc.stdout.startswith("ok")
+    assert _python(code, ROOT).startswith("ok")
+
+
+def _imported_roots(path):
+    """The top-level package of every absolute import in ``path``."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)):
+            yield node.lineno, node.args[0].value.split(".")[0]
 
 
 def test_sources_never_import_jax():
-    for path in PKG.rglob("*.py"):
-        for line in path.read_text().splitlines():
-            s = line.strip()
-            assert not (s.startswith("import jax") or s.startswith("from jax")
-                        or "clustering_tpu.ops" in s
-                        or "clustering_tpu.parallel" in s
-                        or "clustering_tpu.models.density" in s), \
-                f"{path}: {line}"
+    paths = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [f"{p.relative_to(ROOT)}:{line}: {root}"
+           for p in paths for line, root in _imported_roots(p)
+           if root in ("jax", "jaxlib", "clustering_tpu")]
+    assert not bad, bad
+
+
+def test_host_modes_through_port_cli_import_no_jax_package(tmp_path):
+    """density on the CPU, then the six host modes, in one process of the
+    port's CLI: no module of jax or of the JAX package gets loaded."""
+    for name in ("fe", "microstates", "clust.0.30", "clust.0.60",
+                 "clust.0.90", "clust.1.20"):
+        shutil.copy(GOLDEN / name, tmp_path / name)
+    n = len(np.loadtxt(GOLDEN / "microstates"))
+    rng = np.random.default_rng(2)
+    np.savetxt(tmp_path / "coords.dat", rng.normal(size=(n, 2)), fmt="%.5f")
+    runs = [
+        ["density", "-f", "coords.dat", "-r", "0.5", "-p", "pop", "-d",
+         "fe2", "-b", "nn", "-o", "c", "-T", "1.0"],
+        ["network", "-p", "1", "-b", "clust", "--min", "0.3", "--step",
+         "0.3"],
+        ["mpp", "-s", "microstates", "-D", "fe", "-l", "2"],
+        ["coring", "-s", "microstates", "-w", "2", "-o", "cored"],
+        ["noise", "-s", "microstates", "-o", "denoised", "-b", "clust"],
+        ["filter", "-s", "clust.1.20", "-c", "coords.dat", "-S", "1"],
+        ["stats", "-s", "microstates"],
+    ]
+    code = ("import os, sys\n"
+            "os.environ['CLUSTERING_TORCH_DEVICE'] = 'cpu'\n"
+            "from clustering_tpu_torch import cli\n"
+            f"for argv in {runs!r}:\n"
+            "    assert cli.main(argv) == 0, argv\n"
+            f"bad = {FOREIGN}\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    assert _python(code, tmp_path).splitlines()[-1] == "ok"
+    for name in ("pop", "nn", "c.1.00", "network_links.dat", "cored",
+                 "denoised", "coords.state1.dat"):
+        assert (tmp_path / name).exists(), name
 
 
 @pytest.fixture
