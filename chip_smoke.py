@@ -14,8 +14,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      list, all columns dirty and a dirty subset, for the row-side
      kernels) and, for the dense-grid kernels, on the Morton layout's
      skip words (radius words for ``pops_tiles``; band words, then the
-     band's bound words, for ``nn_tiles``): counts, ids and labels exact,
-     distances bit-equal;
+     band's bound words, for ``nn_tiles``), and the two counting kernels
+     once more with three radii (``pops_bidir`` under a random partial
+     rmask): counts, ids and labels exact, distances bit-equal;
   4. the density CLI on cuda with ``--check`` against the same CLI on cpu
      without it at N = 2^15: the check must pass (its counts are
      printed); pop, fe and clust.* files identical, nn ids identical, nn
@@ -263,6 +264,20 @@ def phase_kernels(torch):
     hold(torch, "pops_sparse", f"{len(ti_s)} tiles",
          lambda: kernels.pops_sparse(*args),
          lambda: kernels.pops_sparse_plain(*args), exact("count"))
+    # several radii at once (the CLI's -R; the 2^20 path counts one): the
+    # counting kernels' multi-radius instances, with the plan's rmask cut
+    # by a random one
+    radii3 = [RADIUS / 2, RADIUS, 2 * RADIUS]
+    r2_3 = put(np.asarray([np.float32(r) * np.float32(r) for r in radii3],
+                          np.float32))
+    name3, ti3, tj3, rm3 = eng.pops_plan(radii3, bidir=True)
+    rm3 = rm3 & np.random.default_rng(3).integers(1, 8, size=len(rm3),
+                                                  dtype=np.int32)
+    ct3 = eng.coords_t(name3)
+    args = (r2_3, n, put(ti3), put(tj3), put(rm3), rb, cb)
+    hold(torch, "pops_bidir", f"3 radii, partial rmask, {len(ti3)} tiles",
+         lambda: kernels.pops_bidir(ct3, *args),
+         lambda: kernels.pops_bidir_plain(ct3, *args), exact("count"))
 
     # nearest neighbours: the band pass's tile lists in Morton order, the
     # upper-triangular closure and the band itself
@@ -300,6 +315,13 @@ def phase_kernels(torch):
          lambda: kernels.pops_tiles(ct_m, r2, n, words, rb, cb),
          lambda: kernels.pops_tiles_cross_plain(ct_m, ct_m, r2, n, words, rb,
                                                 cb),
+         exact("count"))
+    words = put(pruning.radius_skip_words(padded, rb, cb,
+                                          r2_3.max().item())[0])
+    hold(torch, "pops_tiles", "3 radii, " + kept_cells(words, nrb, ncb),
+         lambda: kernels.pops_tiles(ct_m, r2_3, n, words, rb, cb),
+         lambda: kernels.pops_tiles_cross_plain(ct_m, ct_m, r2_3, n, words,
+                                                rb, cb),
          exact("count"))
     fe_r, oid_r = fe_l.reshape(1, -1), oid.reshape(1, -1)
 
@@ -579,7 +601,8 @@ def phase_symmetric(torch):
 def phase_skip_words(torch, want_pops, want_nn):
     """The dense skip-word route at 2^20, composed as the JAX library's
     pops_tiles / nn_tiles docstrings leave it to callers; must equal the
-    bidirectional engine run (``want_pops``, ``want_nn``)."""
+    bidirectional engine run (``want_pops``, ``want_nn``). Returns (launch
+    counts, stage walls)."""
     from clustering_tpu_torch.ops import kernels, pruning
     from clustering_tpu_torch.ops.density import free_energies
     from clustering_tpu_torch.ops.engine import NN_BAND_BLOCKS
@@ -680,7 +703,7 @@ def phase_skip_words(torch, want_pops, want_nn):
             fail("skip-word nn distances differ from the bidirectional run")
     print(f"[skip words] N={n}: populations, nn ids and nn distances (bit"
           " for bit) identical to the bidirectional run")
-    return launches
+    return launches, walls
 
 
 # -- phase 8 -------------------------------------------------------------------
@@ -862,7 +885,7 @@ def main():
     for name in SPARSE_KERNELS:
         launches[name] = sym_launches[name]
     with record_calls(TILES_KERNELS) as tiles_calls:
-        tiles_launches = phase_skip_words(torch, pops_b, nn_b)
+        tiles_launches, _ = phase_skip_words(torch, pops_b, nn_b)
     calls.update(tiles_calls)
     for name in TILES_KERNELS:
         launches[name] = tiles_launches[name]

@@ -7,8 +7,8 @@
 // of this file) thread t holds row ti*row_block + t, with its D
 // coordinates in registers when D is a compile-time constant, and columns
 // are staged through shared memory in chunks of CHUNK frames. The
-// register micro-tiles of the second part serve nn_bidir and
-// label_min_bidir.
+// register micro-tiles of the second part serve nn_bidir,
+// label_min_bidir, pops_bidir and pops_tiles.
 //
 // Distance arithmetic is the plain fma chain from zero, in ascending
 // dimension order: diff = x - y; acc = fma(diff, diff, acc). It is
@@ -100,7 +100,7 @@ inline size_t col_smem_bytes(int dt, int d) {
 
 }  // namespace ck
 
-// -- register micro-tiles (nn_bidir, label_min_bidir) ------------------------
+// -- register micro-tiles (the bidirectional kernels, pops_tiles) ------------
 //
 // A CTA of TR x MT_TC threads sweeps a tile in row passes of TR * MT_RM
 // rows. Thread (tr, tc) owns the MT_RM rows p0 + tr + TR * m in registers
@@ -161,6 +161,42 @@ __device__ __forceinline__ void mt_stage_cols(float* ys,
       cp_async4(&ys[e], &ct[(int64_t)k * n_pad + col0 + c]);
     else
       ys[e] = qnan();
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// mt_stage_cols by 16-byte copies (the counting kernels): four columns of
+// one dimension per copy where the source is 16-byte aligned and all four
+// lie inside the chunk and below n_limit; the other groups are loaded
+// element by element, NaN outside. A thread issues d * CH / 4 / blockDim
+// copies per chunk with little index arithmetic; the 4-byte copies of
+// mt_stage_cols spend dozens of instructions on each column.
+template <int CH>
+__device__ __forceinline__ void mt_stage_cols16(float* ys,
+                                                const float* __restrict__ ct,
+                                                int64_t n_pad, int d,
+                                                int64_t col0, int ch,
+                                                int64_t n_limit) {
+  constexpr int G = CH / 4;  // groups of four columns per dimension
+  const int nv = (int)max((int64_t)0, min((int64_t)ch, n_limit - col0));
+  const bool aligned = (((uintptr_t)ct | (uintptr_t)(col0 * 4) |
+                         (uintptr_t)(n_pad * 4)) & 15) == 0;
+  for (int e = threadIdx.x; e < d * G; e += blockDim.x) {
+    const int k = e / G;
+    const int c = (e - k * G) * 4;
+    float* dst = ys + k * CH + c;
+    const float* src = ct + (int64_t)k * n_pad + col0 + c;
+    if (aligned && c + 4 <= nv) {
+      cp_async16(dst, src);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dst[u] = c + u < nv ? src[u] : qnan();
+    }
   }
 }
 
@@ -238,7 +274,105 @@ __device__ __forceinline__ unsigned mt_warp_mask() {
   return live >= 32 ? FULL_MASK : ((1u << live) - 1u);
 }
 
+// -- counting on the micro-tiles (pops_bidir, pops_tiles) --------------------
+
+constexpr int MAX_RADII = 8;  // radii per launch; the wrappers group more
+
+// Threads of a counting CTA: whole warps (the thread rows rounded up to
+// four), so a warp's four thread rows reduce their column counts by
+// shuffles with the full mask; the extra rows are outside the tile.
+inline int mt_count_threads(int row_block) {
+  return (mt_thread_rows(row_block) + 3) / 4 * 4 * MT_TC;
+}
+
+// CTAs per SM that __launch_bounds__ asks of a counting kernel: three
+// (80 registers) while the rows' coordinates and the two counters per row
+// and radius fit without spills (D = 4 with one or two radii), two
+// (128) above, one for the largest D with eight radii. ptxas reports
+// spills of up to ~60 bytes for some of the two-CTA instances.
+constexpr int mt_count_ctas(int dt, int nr) {
+  return (dt > 0 ? dt : 2) + 2 * nr <= 8 ? 3
+         : (dt > 0 ? dt : 2) + 2 * nr <= 24 ? 2 : 1;
+}
+
+// The radii of one launch, set up per CTA so that ONE saturating fma per
+// pair and radius gives w = (d2 <= r2) as exactly 1.0f or 0.0f for every
+// d2 >= 0, inf or NaN (the compare as FSETP + SEL costs the integer pipe,
+// at half the FP32 rate, two instructions):
+//     w = sat(fma(d2, -sc, of)).
+//  - 2^-100 <= r2 < FLT_MAX: rp = nextafter(r2, inf), so d2 <= r2 iff
+//    d2 < rp; sc = 2^(26 - e), e the exponent of rp; of = rp * sc (exact).
+//    If d2 < rp the gap rp - d2 is at least 2^(e - 24) (exact by Sterbenz
+//    for d2 >= rp / 2, else above rp / 2), so the fma's one rounding of
+//    sc * (rp - d2) is >= 4 and sat gives 1. If d2 >= rp it is <= 0, and
+//    never -0 since of > 0; an overflowing d2 * sc gives -inf. sat gives 0
+//    for these and for NaN.
+//  - r2 = FLT_MAX (rp = inf): sc = 2^-126, of = 8; every finite d2 gives
+//    more than 4, inf gives -inf.
+//  - r2 = inf: sc = -2^-126, of = 1; every d2 gives at least 1, inf inf.
+//  - r2 < 0 or NaN (a radius the tile's rmask turns off): sc = of = 0;
+//    d2 * -0 + 0 is +0, or NaN for d2 = inf.
+//  - 0 <= r2 < 2^-100 (r = 0 among them): sc would overflow, so `exact`
+//    is set and the CTA compares d2 <= r2 instead.
+template <int NR>
+struct CountRadii {
+  float r2[NR], sc[NR], of[NR];
+  bool exact;
+
+  // radius r is on where r < n_radii and bit r of `on` is set
+  __device__ __forceinline__ void setup(const float* __restrict__ radii2,
+                                       int n_radii, unsigned on) {
+    exact = false;
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float v =
+          (r < n_radii && ((on >> r) & 1u)) ? radii2[r] : -1.0f;
+      const float rp = nextafterf(v, INFINITY);
+      const int e = ((__float_as_int(rp) >> 23) & 0xff) - 127;
+      r2[r] = v;
+      sc[r] = of[r] = 0.0f;  // r2 < 0 or NaN
+      if (v >= 0.0f) {
+        if (isinf(v)) {
+          sc[r] = -0x1p-126f;
+          of[r] = 1.0f;
+        } else if (isinf(rp)) {
+          sc[r] = 0x1p-126f;
+          of[r] = 8.0f;
+        } else if (e >= -100) {
+          sc[r] = __int_as_float((153 - e) << 23);
+          of[r] = rp * sc[r];
+        } else {
+          exact = true;
+        }
+      }
+    }
+  }
+
+  // w = (d2 <= r2[r]) as 1.0f or 0.0f
+  template <bool EXACT>
+  __device__ __forceinline__ float w(int r, float d2) const {
+    if (EXACT) return d2 <= r2[r] ? 1.0f : 0.0f;
+    return __saturatef(__fmaf_rn(d2, -sc[r], of[r]));
+  }
+};
+
+// Counts of w summed as float bits: k ones add up to k * bits(1.0f) =
+// k * 127 * 2^23 mod 2^32, so bits 23..31 hold 127 k mod 512 and
+// 383 = 127^-1 mod 512 recovers k < 512. One IADD3 adds two w's.
+__device__ __forceinline__ int decode_ones(unsigned acc) {
+  return (int)(((acc >> 23) * 383u) & 511u);
+}
+
 }  // namespace ck
+
+// Dispatch a counting kernel on the number of radii of one launch,
+// rounded up to a bucket: 1, 2, 4 or 8 (the extra radii compare against
+// -1 and count nothing).
+#define CK_DISPATCH_NR(n, NR, ...)                              \
+  if ((n) <= 1) { constexpr int NR = 1; __VA_ARGS__; }          \
+  else if ((n) <= 2) { constexpr int NR = 2; __VA_ARGS__; }     \
+  else if ((n) <= 4) { constexpr int NR = 4; __VA_ARGS__; }     \
+  else { constexpr int NR = 8; __VA_ARGS__; }
 
 // Dispatch a kernel template on D: a compile-time instance for
 // 1 <= D <= 16, the runtime-D instance (DT = 0) above that.

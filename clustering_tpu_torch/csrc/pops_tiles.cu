@@ -11,45 +11,156 @@
 // diagonal +1 follows; pad rows at 3e38 overflow to d2 = inf and count
 // nothing.
 //
-// Design: one CTA per cell of the grid, flattened row-major onto
-// blockIdx.x (gridDim.y stops at 65535 row blocks; x takes 2^31 - 1
-// cells). A CTA reads its skip word first and returns at once when its
-// bit is set, so a skipped cell costs one broadcast word read: a 2^21-cell
-// grid with every bit set takes 1.3 ms on an H100 (700 W). A kept cell
-// runs as pops_sparse.cu: one thread per row, columns staged through
-// shared memory, counts in registers, one atomicAdd per row and radius.
-// One CTA per row block walking its column blocks would need no atomics,
-// but pruned row blocks keep from a few to all of their cells, so it
-// would leave SMs idle behind the longest rows; per-cell CTAs spread
-// every row block's kept cells over the whole card.
-// The TPU zeroed a row block's counts on its first grid step (outside the
-// skip test) and accumulated in VMEM across the in-order column sweep;
-// CTAs run in any order, so the wrapper zeroes the output before the
-// launch and a row block whose every tile is skipped reports zeros.
+// Grid: one CTA per cell of the grid, flattened row-major onto blockIdx.x
+// (gridDim.y stops at 65535 row blocks; x takes 2^31 - 1 cells). A CTA
+// reads its skip word first and returns at once when its bit is set, so a
+// skipped cell costs a CTA launch and one broadcast word read. One CTA per
+// row block walking its column blocks would need no atomics, but pruned
+// row blocks keep from a few to all of their cells, so it would leave SMs
+// idle behind the longest rows; per-cell CTAs spread every row block's
+// kept cells over the whole card (a grid-stride loop over skip words was
+// slower on the card for that reason). The TPU zeroed a
+// row block's counts on its first grid step (outside the skip test) and
+// accumulated in VMEM across the in-order column sweep; CTAs run in any
+// order, so the wrapper zeroes the output before the launch and a row
+// block whose every tile is skipped reports zeros.
 //
-// What bounds it on the H100: per pair of a kept tile, D fp32 subtract +
-// fma and one compare + add per radius, with the columns broadcast from
-// shared memory; skipped cells cost a CTA launch and one word.
+// What bounds it on the H100: the FP32 pipe, 3 * D flops per pair of a
+// kept tile (D subtractions, D fmas), beside the count. A kept cell runs
+// on the register micro-tiles of common.cuh, as pops_bidir.cu without its
+// column side and diagonal: a thread holds MT_RM rows for the pass and
+// evaluates MT_RM x MT_RN pairs per step (16 independent fma chains, one
+// float4 of columns per dimension); 512-column chunks come in by 16-byte
+// cp.async, double-buffered; columns at or past n_valid are staged as
+// NaN, so `d2 <= r^2` alone decides a count. The count is one saturating
+// fma per pair and radius (ck::CountRadii: w = 1.0f or 0.0f, exact) whose
+// float bits add two at a time in IADD3s and are decoded once per chunk
+// (ck::decode_ones); instances for 1, 2, 4 or 8 radii, so one radius costs
+// one compare per pair. Counts stay in registers, fold across the MT_TC
+// threads of a row by shuffles, then one atomicAdd per row and radius
+// where non-zero. A radius below 2^-100 (r = 0) takes the exact compare
+// in a runtime-D instance.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int MAX_R = 8;  // radii per launch; the wrapper groups larger sets
+// The passes of one kept cell: its rows against the chunks of its
+// columns below n_valid. ys holds two chunks.
+template <int DT, int NR, bool EXACT>
+__device__ __forceinline__ void count_cell(
+    const ck::CountRadii<NR>& rad, float* ys,
+    const float* __restrict__ rows_t, int64_t r_pad,
+    const float* __restrict__ cols_t, int64_t n_pad, int d, int n_radii,
+    int n_valid, int64_t row0, int64_t colbase, int row_block,
+    int col_block, int* __restrict__ out) {
+  using namespace ck;
+  constexpr int CH = MtChunk<DT>::value;
+  const int tid = threadIdx.x;
+  const int tc = tid % MT_TC;
+  const int tr = tid / MT_TC;
+  const int n_tr = blockDim.x / MT_TC;
+  const int rows_per_pass = n_tr * MT_RM;
+  const int n_chunks =
+      (int)((min((int64_t)col_block, n_valid - colbase) + CH - 1) / CH);
 
-template <int DT>
-__global__ void pops_tiles_kernel(const float* __restrict__ rows_t,
-                                  int64_t r_pad,
-                                  const float* __restrict__ cols_t,
-                                  int64_t n_pad, int d,
-                                  const float* __restrict__ radii2,
-                                  int n_radii, int n_valid,
-                                  const int* __restrict__ skip_words,
-                                  int words_per_row, int n_col_blocks,
-                                  int row_block, int col_block,
-                                  int* __restrict__ out) {
-  constexpr int CH = ck::Chunk<DT>::value;
-  extern __shared__ float ys[];  // d * CH
+  for (int p0 = 0; p0 < row_block; p0 += rows_per_pass) {
+    int64_t row[MT_RM];
+    bool ok[MT_RM];
+#pragma unroll
+    for (int m = 0; m < MT_RM; ++m) {
+      const int r = p0 + tr + n_tr * m;
+      row[m] = row0 + r;
+      ok[m] = r < row_block;
+    }
+    MtRows<DT> x;
+    x.load(rows_t, r_pad, d, row, ok);
+    int cnt[NR][MT_RM];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int m = 0; m < MT_RM; ++m) cnt[r][m] = 0;
+
+    __syncthreads();  // the previous pass or cell is done with both buffers
+    mt_stage_cols16<CH>(ys, cols_t, n_pad, d, colbase, min(CH, col_block),
+                        n_valid);
+    cp_async_commit();
+
+    for (int q = 0; q < n_chunks; ++q) {
+      const int b = q & 1;
+      const int64_t col0 = colbase + (int64_t)q * CH;
+      const int ch = min(CH, col_block - q * CH);
+      const float* yb = ys + b * d * CH;
+      cp_async_wait_all();
+      __syncthreads();  // chunk q staged; chunk q - 1 computed
+      if (q + 1 < n_chunks) {
+        mt_stage_cols16<CH>(ys + (b ^ 1) * d * CH, cols_t, n_pad, d,
+                            col0 + CH, min(CH, col_block - (q + 1) * CH),
+                            n_valid);
+        cp_async_commit();
+      }
+      // the chunk's ones per row as float bits: at most CH / MT_TC < 512
+      unsigned ones[NR][MT_RM];
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) ones[r][m] = 0u;
+      for (int cbase = 0; cbase < ch; cbase += MT_STEP) {
+        float d2[MT_RM][MT_RN];
+        mt_dist2<DT, CH>(x, yb, d, cbase + MT_RN * tc, d2);
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int m = 0; m < MT_RM; ++m)
+#pragma unroll
+            for (int n = 0; n < MT_RN; ++n)
+              ones[r][m] +=
+                  __float_as_uint(rad.template w<EXACT>(r, d2[m][n]));
+      }
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) cnt[r][m] += decode_ones(ones[r][m]);
+    }
+
+    // rows: fold across the MT_TC threads of each row
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+#pragma unroll
+      for (int m = 0; m < MT_RM; ++m) {
+        int c = cnt[r][m];
+#pragma unroll
+        for (int off = MT_TC / 2; off > 0; off >>= 1)
+          c += __shfl_xor_sync(FULL_MASK, c, off);
+        if (tc == 0 && ok[m] && r < n_radii && c != 0)
+          atomicAdd(&out[(int64_t)r * r_pad + row[m]], c);
+      }
+    }
+  }
+}
+
+// The exact compare for radii below 2^-100, in one runtime-D instance per
+// radius bucket (its 32-column chunks fit every instance's buffers).
+template <int NR>
+__device__ __noinline__ void count_cell_exact(
+    ck::CountRadii<NR> rad, float* ys, const float* __restrict__ rows_t,
+    int64_t r_pad, const float* __restrict__ cols_t, int64_t n_pad, int d,
+    int n_radii, int n_valid, int64_t row0, int64_t colbase, int row_block,
+    int col_block, int* __restrict__ out) {
+  count_cell<0, NR, true>(rad, ys, rows_t, r_pad, cols_t, n_pad, d, n_radii,
+                          n_valid, row0, colbase, row_block, col_block, out);
+}
+
+template <int DT, int NR>
+__global__ void __launch_bounds__(ck::MT_MAX_TR * ck::MT_TC,
+                                  ck::mt_count_ctas(DT, NR))
+pops_tiles_kernel(const float* __restrict__ rows_t, int64_t r_pad,
+                  const float* __restrict__ cols_t, int64_t n_pad, int d,
+                  const float* __restrict__ radii2, int n_radii, int n_valid,
+                  const int* __restrict__ skip_words, int words_per_row,
+                  int n_col_blocks, int row_block, int col_block,
+                  int* __restrict__ out) {
+  extern __shared__ __align__(16) float ys[];  // 2 x d * CH
 
   const int64_t cell = blockIdx.x;
   const int64_t i = cell / n_col_blocks;
@@ -57,47 +168,19 @@ __global__ void pops_tiles_kernel(const float* __restrict__ rows_t,
   const unsigned word =
       (unsigned)skip_words[i * words_per_row + (j >> 5)];
   if ((word >> (j & 31)) & 1u) return;  // pruned tile
-
-  const int tid = threadIdx.x;
   const int64_t row0 = i * row_block;
-  const int64_t row = row0 + tid;
-  const bool row_on = tid < row_block;
   const int64_t colbase = (int64_t)j * col_block;
+  if (colbase >= n_valid) return;  // no column below n_valid
 
-  float r2[MAX_R];
-#pragma unroll
-  for (int r = 0; r < MAX_R; ++r) r2[r] = r < n_radii ? radii2[r] : 0.0f;
-
-  ck::RowCoords<DT> x;
-  x.load(rows_t, r_pad, row_on ? row : row0, d);
-
-  int cnt[MAX_R];
-#pragma unroll
-  for (int r = 0; r < MAX_R; ++r) cnt[r] = 0;
-
-  for (int off = 0; off < col_block; off += CH) {
-    const int64_t col0 = colbase + off;
-    const int ch = min(CH, col_block - off);
-    if (col0 >= n_valid) break;
-    // columns at or past n_valid are pads: they count for no row
-    const int lim = min(ch, (int)(n_valid - col0));
-    __syncthreads();
-    ck::stage_cols(ys, cols_t, n_pad, d, col0, ch);
-    __syncthreads();
-    for (int c = 0; c < lim; ++c) {
-      const float d2 = x.dist2(ys, ch, c, d);
-#pragma unroll
-      for (int r = 0; r < MAX_R; ++r) {
-        if (r < n_radii) cnt[r] += d2 <= r2[r];
-      }
-    }
-  }
-  if (row_on) {
-#pragma unroll
-    for (int r = 0; r < MAX_R; ++r) {
-      if (cnt[r] != 0) atomicAdd(&out[(int64_t)r * r_pad + row], cnt[r]);
-    }
-  }
+  ck::CountRadii<NR> rad;
+  rad.setup(radii2, n_radii, ~0u);
+  if (rad.exact)
+    count_cell_exact<NR>(rad, ys, rows_t, r_pad, cols_t, n_pad, d, n_radii,
+                         n_valid, row0, colbase, row_block, col_block, out);
+  else
+    count_cell<DT, NR, false>(rad, ys, rows_t, r_pad, cols_t, n_pad, d,
+                              n_radii, n_valid, row0, colbase, row_block,
+                              col_block, out);
 }
 
 }  // namespace
@@ -108,26 +191,28 @@ extern "C" int ck_pops_tiles(const float* rows_t, long long r_pad,
                              const int* skip_words, int words_per_row,
                              int row_block, int col_block, int* out,
                              void* stream) {
-  if (n_radii < 1 || n_radii > MAX_R || row_block < 1 || row_block > 1024 ||
-      col_block < 1 || r_pad % row_block != 0 || n_pad % col_block != 0)
+  if (n_radii < 1 || n_radii > ck::MAX_RADII || row_block < 1 ||
+      row_block > 1024 || col_block < 1 || r_pad % row_block != 0 ||
+      n_pad % col_block != 0)
     return (int)cudaErrorInvalidValue;
   const long long n_col_blocks = n_pad / col_block;
   const long long cells = (r_pad / row_block) * n_col_blocks;
   if (cells > 0x7FFFFFFFll || words_per_row != (n_col_blocks + 31) / 32)
     return (int)cudaErrorInvalidValue;
   if (cells == 0) return (int)cudaGetLastError();
-  const int threads = ck::cta_threads(row_block);
+  const int threads = ck::mt_count_threads(row_block);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  CK_DISPATCH_D(d, DT, {
-    const size_t smem = ck::col_smem_bytes(DT, d);
+  CK_DISPATCH_D(d, DT, CK_DISPATCH_NR(n_radii, NR, {
+    constexpr int CH = ck::MtChunk<DT>::value;
+    const size_t smem = (size_t)2 * CH * d * sizeof(float);
     if (smem > (48u << 10))
-      cudaFuncSetAttribute(pops_tiles_kernel<DT>,
+      cudaFuncSetAttribute(pops_tiles_kernel<DT, NR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
-    pops_tiles_kernel<DT><<<(unsigned)cells, threads, smem, st>>>(
+    pops_tiles_kernel<DT, NR><<<(unsigned)cells, threads, smem, st>>>(
         rows_t, (int64_t)r_pad, cols_t, (int64_t)n_pad, d, radii2, n_radii,
         n_valid, skip_words, words_per_row, (int)n_col_blocks, row_block,
         col_block, out);
-  });
+  }));
   return (int)cudaGetLastError();
 }

@@ -1,26 +1,33 @@
 #!/usr/bin/env python3
-"""A/B of two versions of the bidirectional NN and label-min kernels on one
-NVIDIA GPU, on the calls of the density main path at N = 2^20, D = 4.
+"""A/B of two versions of some of the port's kernels on one NVIDIA GPU, on
+the calls of their 2^20 paths (N = 2^20, D = 4).
 
-    python3 kernel_ab.py --old OLD_CSRC [--out build/kernel_ab.json]
+    python3 kernel_ab.py --old OLD_CSRC [--kernels pops_bidir,pops_tiles]
+                         [--out build/kernel_ab.json]
 
 OLD_CSRC is a ``csrc`` directory of another version of
-``clustering_tpu_torch`` (``nn_bidir.cu``, ``label_min_bidir.cu`` and
-their ``common.cuh``), for example the parent commit's, unpacked with
-``git archive`` into a directory that .gitignore lists. Its two kernels are
-built with nvcc into a library of their own; every other kernel comes from
-the current sources. In one process, in the order old, new, new, old:
+``clustering_tpu_torch`` (the named kernels' ``<name>.cu`` and their
+``common.cuh``), for example the parent commit's, unpacked with
+``git archive`` into a directory that .gitignore lists. ``--kernels``
+names any of the eight kernels (``chip_smoke.KERNELS``); the old version's
+named kernels are built with nvcc into a library of their own, and every
+other kernel comes from the current sources. In one process, in the order
+old, new, new, old:
 
   1. the engines' pipeline of ``chip_smoke.py`` phase 6 (populations, NN,
-     screening set-up and four screening steps), with the stage walls on
-     the host clock, after one untimed warm-up run; every run must give
-     identical populations, nn ids, nn distances (bit for bit) and
-     clusterings;
-  2. the recorded ``nn_bidir`` and ``label_min_bidir`` calls of the first
-     run replayed through each version, kernel time summed over the calls
-     (CUDA events); outputs must be identical between the versions.
+     screening set-up and four screening steps) and the skip-word route of
+     phase 7 (populations and the two-pass NN through ``pops_tiles`` /
+     ``nn_tiles``, held against that run's engine results), with the stage
+     walls on the host clock, after one untimed warm-up run; every run
+     must give identical populations, nn ids, nn distances (bit for bit)
+     and clusterings;
+  2. the recorded calls of the named kernels from the first run replayed
+     through each version, kernel time summed over the calls (CUDA
+     events); outputs must be identical between the versions.
 
-Prints one JSON line and writes it to ``--out``.
+The engines take the bidirectional route, so of the row-side kernels
+(``pops_sparse``, ``nn_sparse``, ``label_min_sparse``) no call is
+recorded. Prints one JSON line and writes it to ``--out``.
 """
 
 import argparse
@@ -34,14 +41,13 @@ import numpy as np
 
 import chip_smoke as cs
 
-AB_KERNELS = ("nn_bidir", "label_min_bidir")
 ORDER = ("old", "new", "new", "old")
 
 
-def build_old(csrc):
-    """nvcc the old version's two kernels into one library; returns it."""
+def build_old(csrc, names):
+    """nvcc the old version's named kernels into one library; returns it."""
     from clustering_tpu_torch.ops import _build
-    srcs = [os.path.join(csrc, f"{k}.cu") for k in AB_KERNELS]
+    srcs = [os.path.join(csrc, f"{k}.cu") for k in names]
     h = hashlib.sha256()
     for p in srcs + [os.path.join(csrc, "common.cuh")]:
         with open(p, "rb") as fh:
@@ -55,7 +61,7 @@ def build_old(csrc):
                           "-shared", "-I", csrc, "-o", lib] + srcs,
                        check=True)
     old = ctypes.CDLL(lib)
-    for name in AB_KERNELS:
+    for name in names:
         fn = getattr(old, "ck_" + name)
         fn.argtypes = _build.SIGNATURES["ck_" + name]
         fn.restype = ctypes.c_int
@@ -63,17 +69,17 @@ def build_old(csrc):
 
 
 class Switch:
-    """Stands in for the kernel library: the two A/B entry points from the
-    chosen version, every other one from the current build."""
+    """Stands in for the kernel library: the named kernels' entry points
+    from the chosen version, every other one from the current build."""
 
-    def __init__(self, new, old):
+    def __init__(self, new, old, names):
         self.libs = {"new": new, "old": old}
+        self.names = names
         self.use = "new"
 
     def __getattr__(self, name):
-        if name[3:] in AB_KERNELS:
-            return getattr(self.libs[self.use], name)
-        return getattr(self.libs["new"], name)
+        version = self.use if name[3:] in self.names else "new"
+        return getattr(self.libs[version], name)
 
 
 def same_results(a, b):
@@ -91,39 +97,55 @@ def same_results(a, b):
     return all(np.array_equal(x, y) for x, y in zip(clust_a, clust_b))
 
 
+def run_paths(torch, coords):
+    """The engines' pipeline, then the skip-word route held against it.
+    Returns ((pops, nn, clusterings), engine walls, skip-word walls)."""
+    pops, nn, clust, walls, _ = cs.run_engines(torch, coords)
+    _, skip_walls = cs.phase_skip_words(torch, pops, nn)
+    return (pops, nn, clust), walls, skip_walls
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--old", required=True, help="the old csrc directory")
+    ap.add_argument("--kernels", default="pops_bidir,pops_tiles",
+                    help="comma-separated kernel names")
     ap.add_argument("--out", default="build/kernel_ab.json")
     args = ap.parse_args()
+    names = tuple(args.kernels.split(","))
+    unknown = [k for k in names if k not in cs.KERNELS]
+    if unknown:
+        ap.error(f"unknown kernels {unknown}; choose from {list(cs.KERNELS)}")
     torch, smi = cs.phase_device()
     cs.phase_build()
     from clustering_tpu_torch.ops import _build, kernels
-    switch = Switch(_build.library(), build_old(args.old))
+    switch = Switch(_build.library(), build_old(args.old, names), names)
     _build.library = lambda: switch
     coords = cs.synthetic_fel(cs.N_MAIN, cs.DIM, seed=0)
 
     # one untimed run first: the CUDA context, the library loads and the
     # allocator's first growth stay out of the walls
-    cs.run_engines(torch, coords)
+    run_paths(torch, coords)
     walls, calls, first = [], None, None
     for version in ORDER:
         switch.use = version
-        kernels.reset_launches()
-        with cs.record_calls(AB_KERNELS) as rec:
-            pops, nn, clust, w, _ = cs.run_engines(torch, coords)
-        walls.append({"version": version, "stages": w,
-                      "launches": {k: kernels.LAUNCHES[k]
-                                   for k in AB_KERNELS}})
-        print(f"[ab] {version}: stages {json.dumps(w)}")
+        with cs.record_calls(names) as rec:
+            results, w, w_skip = run_paths(torch, coords)
+        walls.append({"version": version, "stages": w, "skip_words": w_skip,
+                      "calls": {k: len(rec[k]) for k in names}})
+        print(f"[ab] {version}: stages {json.dumps(w)}, skip words"
+              f" {json.dumps(w_skip)}")
         if first is None:
-            first, calls = (pops, nn, clust), rec
-        elif not same_results(first, (pops, nn, clust)):
+            first, calls = results, rec
+        elif not same_results(first, results):
             cs.fail(f"the {version} run's results differ from the first")
 
     replays = {}
-    for name in AB_KERNELS:
-        fn = getattr(kernels, name)
+    for name in names:
+        if not calls[name]:
+            cs.fail(f"{name}: no call recorded on the engines' or the"
+                    " skip-word route")
+        fn = getattr(kernels, cs.WRAPPERS[name])
         outs, times = {}, []
         for version in ORDER:
             switch.use = version
@@ -139,9 +161,10 @@ def main():
                          "bound_ms": bound, "times": times}
         print(f"[ab] {name}: {len(calls[name])} calls, {pairs} pairs, bound"
               f" {bound:.3f} ms, ms " + ", ".join(
-                  f"{t['version']} {t['ms']:.3f}" for t in times))
-    result = {"device": smi, "n": cs.N_MAIN, "d": cs.DIM, "walls": walls,
-              "kernels": replays}
+                  f"{t['version']} {t['ms']:.3f} (share"
+                  f" {bound / t['ms']:.3f})" for t in times))
+    result = {"device": smi, "n": cs.N_MAIN, "d": cs.DIM,
+              "kernels_ab": list(names), "walls": walls, "kernels": replays}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(result, fh, indent=1)

@@ -19,6 +19,7 @@ import torch
 
 from clustering_tpu.ops import pallas_kernels as pk
 from clustering_tpu_torch.ops import kernels, pruning
+from clustering_tpu_torch.ops.pairwise import sq_dists
 
 RB, CB = 8, 16
 IMAX = np.iinfo(np.int32).max
@@ -72,6 +73,47 @@ def test_pops_bidir_matches_pallas(d):
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
     # CPU tensors take the plain version: no kernel launch is counted
     assert kernels.LAUNCHES == before
+
+
+def _tie_radii2(x, pairs, others):
+    """Squared radii: the fma-chain d2 of each (i, j) pair of frames of
+    ``x`` (N, D), so the pair sits exactly on its radius (d2 <= r^2 counts
+    it), then ``others``; float32."""
+    ties = [sq_dists(x[i:i + 1], x[j:j + 1])[0, 0] for i, j in pairs]
+    return torch.cat([torch.stack(ties),
+                      torch.as_tensor(np.asarray(others, np.float32),
+                                      device=x.device)])
+
+
+@pytest.mark.parametrize("d", [1, 3, 4])
+def test_pops_bidir_nine_radii_and_ties_match_pallas(d):
+    """Nine radii (two launch groups on the card), four of them ties -- the
+    squared radius equals a pair's fma-chain d2 -- and one of 0 (only the
+    duplicate frames), over the full upper-triangular list with a partial
+    rmask whose tie bits are set on every tile."""
+    n = 150
+    c, ct = _layout(n, d, seed=70 + d, dup=5)
+    pairs = ((3, 40), (7, 120), (20, 21), (60, 149))
+    radii2 = _tie_radii2(torch.from_numpy(c), pairs,
+                         [0.0, 0.02, 0.1, 0.3, 0.8]).numpy()
+    ti, tj = _tiles(ct.shape[1], seed=80 + d, frac=1.0)
+    rng = np.random.default_rng(d)
+    rmask = (rng.integers(0, 1 << 9, size=len(ti)) | 0b1111).astype(np.int32)
+    want = np.asarray(pk._add_self_count(
+        pk.pops_tiles_sparse_bidir(ct, radii2, np.int32(n), ti, tj, rmask,
+                                   row_block=RB, col_block=CB),
+        np.int32(n)))
+    args = (torch.from_numpy(ti), torch.from_numpy(tj),
+            torch.from_numpy(rmask), RB, CB)
+    got = kernels.pops_bidir(torch.from_numpy(ct), torch.from_numpy(radii2),
+                             n, *args)
+    np.testing.assert_array_equal(want, got.numpy())
+    # each tie radius counts its pair: one ulp less counts fewer
+    below = np.nextafter(radii2[:4], np.float32(-np.inf))
+    fewer = kernels.pops_bidir(torch.from_numpy(ct), torch.from_numpy(below),
+                               n, *args).numpy()
+    for k, (i, j) in enumerate(pairs):
+        assert fewer[k, i] < want[k, i] and fewer[k, j] < want[k, j]
 
 
 def _nn_inputs(n, d, seed, dup):
@@ -350,3 +392,62 @@ def test_cuda_redesigned_bidir_kernels_match_plain(d, rb, cb):
     assert bool((want != labels).any())
     assert kernels.LAUNCHES["nn_bidir"] == 2
     assert kernels.LAUNCHES["label_min_bidir"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64)])
+def test_cuda_redesigned_pops_bidir_matches_plain(d, rb, cb):
+    """The micro-tiled pops_bidir against its plain version with 1, 2, 3, 8
+    and 9 radii (9: two launches; every radius-bucket instance), a
+    partial rmask, tie radii (squares equal to pairs' d2), diagonal tiles,
+    n_valid inside a tile, real frames past it and duplicate frames
+    (d2 = 0): counts exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n, ct, ti, tj, _, _ = _bidir_case(d, rb, cb, seed=11 * d + rb)
+    ct_d, ti_d, tj_d = (torch.as_tensor(a, device=dev) for a in (ct, ti, tj))
+    x = ct_d[:, :n].T
+    radii2 = _tie_radii2(x, ((1, n - 1), (5, n // 2), (10, 11)),
+                         [0.0, 0.002 * d, 0.01 * d, 0.04 * d, 0.1 * d,
+                          0.4 * d])
+    rng = np.random.default_rng(d + rb)
+    kernels.reset_launches()
+    for k in (1, 2, 3, 8, 9):
+        rmask = rng.integers(0, 1 << k, size=len(ti)).astype(np.int32)
+        rmask[::7] = (1 << k) - 1
+        args = (ct_d, radii2[:k].contiguous(), n, ti_d, tj_d,
+                torch.as_tensor(rmask, device=dev), rb, cb)
+        got = kernels.pops_bidir(*args)
+        assert torch.equal(got, kernels.pops_bidir_plain(*args)), k
+    assert bool((got[:, :n] > 1).any())
+    assert kernels.LAUNCHES["pops_bidir"] == 6
+
+
+# squared radii at the edges of the kernels' one-fma count: below 2^-100
+# the exact compare takes over (the first set), above it the fma decides
+# (the second); -1 and NaN count nothing, inf and FLT_MAX count everything
+# (inf: pads included)
+EDGE_RADII2 = {
+    "exact": [0.0, 1e-35, 2.0 ** -100, -1.0, float("nan"), float("inf"),
+              float(np.finfo(np.float32).max)],
+    "fma": [2.0 ** -100, 2.0 ** -99.5, -1.0, float("nan"), float("inf"),
+            float(np.finfo(np.float32).max), 1e30],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 17])
+@pytest.mark.parametrize("which", sorted(EDGE_RADII2))
+def test_cuda_pops_bidir_edge_radii_match_plain(d, which):
+    """pops_bidir with radii at the edges of its one-fma count, and tie
+    radii, against its plain version: counts exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n, ct, ti, tj, _, _ = _bidir_case(d, 64, 256, seed=5 * d)
+    ct_d, ti_d, tj_d = (torch.as_tensor(a, device=dev) for a in (ct, ti, tj))
+    radii2 = _tie_radii2(ct_d[:, :n].T, ((2, n - 3),), EDGE_RADII2[which])
+    rmask = torch.full((len(ti),), 255, dtype=torch.int32, device=dev)
+    args = (ct_d, radii2, n, ti_d, tj_d, rmask, 64, 256)
+    got = kernels.pops_bidir(*args)
+    assert torch.equal(got, kernels.pops_bidir_plain(*args))

@@ -28,6 +28,7 @@ from clustering_tpu_torch.ops import kernels
 from clustering_tpu_torch.ops import neighbors as tnops
 from clustering_tpu_torch.ops import pruning as tpruning
 from clustering_tpu_torch.ops.engine import NN_BAND_BLOCKS
+from clustering_tpu_torch.ops.pairwise import sq_dists
 
 IMAX = np.iinfo(np.int32).max
 BLOCKS = [(8, 16), (16, 24)]  # the second pair does not divide
@@ -168,6 +169,51 @@ def test_pops_tiles_match_pallas(d, rb, cb):
     assert got.numpy()[:, :-rb].any() and not got.numpy()[:, -rb:].any()
     # CPU tensors take the plain version: no kernel launch is counted
     assert kernels.LAUNCHES == before
+
+
+def _tie_radii2(x, pairs, others):
+    """Squared radii: the fma-chain d2 of each (i, j) pair of frames of
+    ``x`` (N, D), so the pair sits exactly on its radius (d2 <= r^2 counts
+    it), then ``others``; float32."""
+    ties = [sq_dists(x[i:i + 1], x[j:j + 1])[0, 0] for i, j in pairs]
+    return torch.cat([torch.stack(ties),
+                      torch.as_tensor(np.asarray(others, np.float32),
+                                      device=x.device)])
+
+
+@pytest.mark.parametrize("d,rb,cb", [(1, 8, 16), (3, 16, 24), (4, 8, 16)])
+def test_pops_tiles_nine_radii_and_ties_match_pallas(d, rb, cb):
+    """Nine radii (two launch groups on the card), four of them ties -- the
+    squared radius equals a pair's fma-chain d2 -- and one of 0 (the self
+    pairs and the duplicates), on the cross form with skip words from the
+    rows' boxes against the columns'."""
+    n = 220
+    c = _morton(_blobs(n, d, seed=50 + d, dup=3))
+    padded = _pad(c, int(np.lcm(rb, cb)))
+    ct = np.ascontiguousarray(padded.T)
+    rows = _cross_rows(c, rb, seed=60 + d)
+    rows[:4] = c[[0, 9, 90, 150]]  # rows that are columns: exact ties
+    pairs = ((0, 5), (1, 30), (2, 91), (3, 160))  # (row, column)
+    x = torch.from_numpy(np.concatenate([rows, padded]))
+    radii2 = _tie_radii2(x, [(i, len(rows) + j) for i, j in pairs],
+                         [0.0, 0.01, 0.05, 0.2, 0.5]).numpy()
+    rmin, rmax = tpruning.block_bboxes(rows, rb)
+    cmin, cmax = tpruning.block_bboxes(padded, cb)
+    skip = tpruning.bbox_dist2(rmin, rmax, cmin, cmax) > radii2.max()
+    assert skip.any() and not skip.all()
+    words, _ = tpruning.pack_skip_words(skip)
+    rows_t = np.ascontiguousarray(rows.T)
+    want = np.asarray(pk.pops_tiles_cross(rows_t, ct, radii2, n, words,
+                                          row_block=rb, col_block=cb))
+    got = kernels.pops_tiles_cross(_t(rows_t), _t(ct), _t(radii2), n,
+                                   _t(words), rb, cb).numpy()
+    np.testing.assert_array_equal(got, want)
+    # each tie radius counts its pair: one ulp less counts fewer
+    below = np.nextafter(radii2[:4], np.float32(-np.inf))
+    fewer = kernels.pops_tiles_cross(_t(rows_t), _t(ct), _t(below), n,
+                                     _t(words), rb, cb).numpy()
+    for k, (i, _) in enumerate(pairs):
+        assert fewer[k, i] < want[k, i]
 
 
 # -- nearest neighbours -----------------------------------------------------------
@@ -372,3 +418,87 @@ def test_cuda_skip_word_kernels_match_plain(d, rb, cb):
     assert torch.isfinite(got[2]).any()
     assert kernels.LAUNCHES["pops_tiles"] == 2
     assert kernels.LAUNCHES["nn_tiles"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64), (16, 24)])
+def test_cuda_redesigned_pops_tiles_match_plain(d, rb, cb):
+    """The micro-tiled pops_tiles_cross against its plain version with 1,
+    2, 3, 8 and 9 radii (9: two launches; every radius-bucket instance),
+    tie radii (squares equal to pairs' d2), a row set of its own
+    (R_pad != N_pad) with duplicates of columns, n_valid inside a column
+    block, a wholly skipped row block and skip bit 31: counts exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(300 + d + rb)
+    n = 33 * cb + cb // 2 + 5
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[:8] = c[0]
+    padded = _pad(c, cb)
+    rows = _cross_rows(c, rb, seed=d, n_blocks=5)
+    rows[:3] = c[[0, 1, n - 1]]
+    nrb, ncb = len(rows) // rb, len(padded) // cb
+    skip = rng.random((nrb, ncb)) < 0.4
+    skip[:, 31] = True
+    skip[2] = True
+    skip[0, [0, ncb - 1]] = False
+    words, _ = tpruning.pack_skip_words(skip)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    ct, rows_t, w = put(padded.T), put(rows.T), put(words)
+    x = torch.cat([rows_t.T, ct.T])
+    radii2 = _tie_radii2(x, [(0, len(rows) + 3), (1, len(rows) + n - 2),
+                             (2, len(rows) + 40)],
+                         [0.0, 0.002 * d, 0.01 * d, 0.04 * d, 0.1 * d,
+                          0.4 * d])
+    kernels.reset_launches()
+    for k in (1, 2, 3, 8, 9):
+        args = (rows_t, ct, radii2[:k].contiguous(), n, w, rb, cb)
+        got = kernels.pops_tiles_cross(*args)
+        assert torch.equal(got, kernels.pops_tiles_cross_plain(*args)), k
+        assert got[:, 2 * rb:3 * rb].eq(0).all()
+    assert bool((got[:, :rb] > 1).any())
+    assert kernels.LAUNCHES["pops_tiles"] == 6
+
+
+# squared radii at the edges of the kernel's one-fma count (as in
+# tests/test_torch_kernels.py): below 2^-100 the exact compare takes over
+EDGE_RADII2 = {
+    "exact": [0.0, 1e-35, 2.0 ** -100, -1.0, float("nan"), float("inf"),
+              float(np.finfo(np.float32).max)],
+    "fma": [2.0 ** -100, 2.0 ** -99.5, -1.0, float("nan"), float("inf"),
+            float(np.finfo(np.float32).max), 1e30],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 17])
+@pytest.mark.parametrize("which", sorted(EDGE_RADII2))
+def test_cuda_pops_tiles_edge_radii_match_plain(d, which):
+    """pops_tiles_cross with radii at the edges of its one-fma count, and
+    a tie radius, on a row set with a pad-only row block (d2 = inf: inf
+    counts it, FLT_MAX does not), against its plain version: exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(400 + d)
+    n = 5 * 64 + 9
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[:4] = c[0]
+    padded = _pad(c, 64)
+    rows = _cross_rows(c, 32, seed=d)
+    rows[0] = c[7]
+    skip = rng.random((len(rows) // 32, len(padded) // 64)) < 0.3
+    words, _ = tpruning.pack_skip_words(skip)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    rows_t, ct = put(rows.T), put(padded.T)
+    x = torch.cat([rows_t.T, ct.T])
+    radii2 = _tie_radii2(x, [(0, len(rows) + 9)], EDGE_RADII2[which])
+    args = (rows_t, ct, radii2, n, put(words), 32, 64)
+    got = kernels.pops_tiles_cross(*args)
+    assert torch.equal(got, kernels.pops_tiles_cross_plain(*args))
