@@ -14,9 +14,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      list, all columns dirty and a dirty subset, for the row-side
      kernels) and, for the dense-grid kernels, on the Morton layout's
      skip words (radius words for ``pops_tiles``; band words, then the
-     band's bound words, for ``nn_tiles``), and the two counting kernels
-     once more with three radii (``pops_bidir`` under a random partial
-     rmask): counts, ids and labels exact, distances bit-equal;
+     band's bound words, for ``nn_tiles``), and the three counting kernels
+     once more with three radii (``pops_bidir`` and ``pops_sparse`` under
+     a random partial rmask): counts, ids and labels exact, distances
+     bit-equal;
   4. the density CLI on cuda with ``--check`` against the same CLI on cpu
      without it at N = 2^15: the check must pass (its counts are
      printed); pop, fe and clust.* files identical, nn ids identical, nn
@@ -278,6 +279,14 @@ def phase_kernels(torch):
     hold(torch, "pops_bidir", f"3 radii, partial rmask, {len(ti3)} tiles",
          lambda: kernels.pops_bidir(ct3, *args),
          lambda: kernels.pops_bidir_plain(ct3, *args), exact("count"))
+    name3, ti3, tj3, rm3 = eng.pops_plan(radii3, bidir=False)
+    rm3 = rm3 & np.random.default_rng(4).integers(1, 8, size=len(rm3),
+                                                  dtype=np.int32)
+    ct3 = eng.coords_t(name3)
+    args = (ct3, ct3, r2_3, n, put(ti3), put(tj3), put(rm3), rb, cb)
+    hold(torch, "pops_sparse", f"3 radii, partial rmask, {len(ti3)} tiles",
+         lambda: kernels.pops_sparse(*args),
+         lambda: kernels.pops_sparse_plain(*args), exact("count"))
 
     # nearest neighbours: the band pass's tile lists in Morton order, the
     # upper-triangular closure and the band itself
@@ -542,24 +551,33 @@ def run_engines(torch, coords):
     return pops, nn, clust, walls, modes
 
 
-def phase_symmetric(torch):
-    from clustering_tpu_torch.ops import kernels
+@contextlib.contextmanager
+def bidir_switches(on):
+    """The engines' three bidirectional switches (``POPS_BIDIR``,
+    ``NN_BIDIR``, ``BIDIR``) set to ``on`` while the block runs, restored
+    after it."""
     from clustering_tpu_torch.ops.engine import DensityEngine
     from clustering_tpu_torch.ops.screening import ScreeningEngine
-    coords = synthetic_fel(N_MAIN, DIM, seed=0)
     saved = (DensityEngine.POPS_BIDIR, DensityEngine.NN_BIDIR,
              ScreeningEngine.BIDIR)
-    runs = {}
+    DensityEngine.POPS_BIDIR = DensityEngine.NN_BIDIR = on
+    ScreeningEngine.BIDIR = on
     try:
-        for mode, on in (("bidir", True), ("symmetric", False)):
-            DensityEngine.POPS_BIDIR = DensityEngine.NN_BIDIR = on
-            ScreeningEngine.BIDIR = on
-            kernels.reset_launches()
-            out = run_engines(torch, coords)
-            runs[mode] = out + (dict(kernels.LAUNCHES),)
+        yield
     finally:
         (DensityEngine.POPS_BIDIR, DensityEngine.NN_BIDIR,
          ScreeningEngine.BIDIR) = saved
+
+
+def phase_symmetric(torch):
+    from clustering_tpu_torch.ops import kernels
+    coords = synthetic_fel(N_MAIN, DIM, seed=0)
+    runs = {}
+    for mode, on in (("bidir", True), ("symmetric", False)):
+        with bidir_switches(on):
+            kernels.reset_launches()
+            out = run_engines(torch, coords)
+        runs[mode] = out + (dict(kernels.LAUNCHES),)
     for mode, (_, _, _, walls, modes, launches) in runs.items():
         print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
               + json.dumps(walls))

@@ -22,12 +22,25 @@ __version__ = "0.1.0"
 
 VERSION_STRING = "v" + __version__
 
-_API_NAMES = ("populations", "free_energies", "nearest_neighbors",
-              "screening_series", "Neighborhoods")
+# the API surface loads lazily (PEP 562), as in the JAX package: importing
+# the package for a host mode loads no torch through api -> ops. The JAX
+# package's ``parallel`` (multi-device) is not ported yet.
+_API_NAMES = (
+    "populations", "free_energies", "nearest_neighbors",
+    "screening_series", "fill_landscape", "mpp_lump", "core_trajectory",
+    "assign_noise", "waiting_time_distribution", "Neighborhoods",
+    "MppResult", "api", "ops", "models", "utils")
 
 
 def __getattr__(name):
     if name in _API_NAMES:
+        if name in ("api", "ops", "models", "utils"):
+            import importlib
+            return importlib.import_module("." + name, __name__)
         from . import api
         return getattr(api, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_API_NAMES))

@@ -7,8 +7,8 @@
 // of this file) thread t holds row ti*row_block + t, with its D
 // coordinates in registers when D is a compile-time constant, and columns
 // are staged through shared memory in chunks of CHUNK frames. The
-// register micro-tiles of the second part serve nn_bidir,
-// label_min_bidir, pops_bidir and pops_tiles.
+// register micro-tiles of the second part serve nn_bidir, nn_tiles,
+// label_min_bidir, pops_bidir, pops_tiles and pops_sparse.
 //
 // Distance arithmetic is the plain fma chain from zero, in ascending
 // dimension order: diff = x - y; acc = fma(diff, diff, acc). It is
@@ -100,7 +100,8 @@ inline size_t col_smem_bytes(int dt, int d) {
 
 }  // namespace ck
 
-// -- register micro-tiles (the bidirectional kernels, pops_tiles) ------------
+// -- register micro-tiles (the bidirectional kernels, pops_tiles, ----------
+// -- pops_sparse, nn_tiles) ---------------------------------------------------
 //
 // A CTA of TR x MT_TC threads sweeps a tile in row passes of TR * MT_RM
 // rows. Thread (tr, tc) owns the MT_RM rows p0 + tr + TR * m in registers
@@ -363,6 +364,156 @@ __device__ __forceinline__ int decode_ones(unsigned acc) {
   return (int)(((acc >> 23) * 383u) & 511u);
 }
 
+// The passes of one kept cell or tile of a row-side counting kernel
+// (pops_tiles, pops_sparse): its rows against the chunks of its columns
+// below n_valid, every pair with d2 <= r^2 of an on radius adding 1 to
+// the row's count. ys holds two chunks.
+template <int DT, int NR, bool EXACT>
+__device__ __forceinline__ void count_cell(
+    const CountRadii<NR>& rad, float* ys,
+    const float* __restrict__ rows_t, int64_t r_pad,
+    const float* __restrict__ cols_t, int64_t n_pad, int d, int n_radii,
+    int n_valid, int64_t row0, int64_t colbase, int row_block,
+    int col_block, int* __restrict__ out) {
+  constexpr int CH = MtChunk<DT>::value;
+  const int tid = threadIdx.x;
+  const int tc = tid % MT_TC;
+  const int tr = tid / MT_TC;
+  const int n_tr = blockDim.x / MT_TC;
+  const int rows_per_pass = n_tr * MT_RM;
+  const int n_chunks =
+      (int)((min((int64_t)col_block, n_valid - colbase) + CH - 1) / CH);
+
+  for (int p0 = 0; p0 < row_block; p0 += rows_per_pass) {
+    int64_t row[MT_RM];
+    bool ok[MT_RM];
+#pragma unroll
+    for (int m = 0; m < MT_RM; ++m) {
+      const int r = p0 + tr + n_tr * m;
+      row[m] = row0 + r;
+      ok[m] = r < row_block;
+    }
+    MtRows<DT> x;
+    x.load(rows_t, r_pad, d, row, ok);
+    int cnt[NR][MT_RM];
+#pragma unroll
+    for (int r = 0; r < NR; ++r)
+#pragma unroll
+      for (int m = 0; m < MT_RM; ++m) cnt[r][m] = 0;
+
+    __syncthreads();  // the previous pass or cell is done with both buffers
+    mt_stage_cols16<CH>(ys, cols_t, n_pad, d, colbase, min(CH, col_block),
+                        n_valid);
+    cp_async_commit();
+
+    for (int q = 0; q < n_chunks; ++q) {
+      const int b = q & 1;
+      const int64_t col0 = colbase + (int64_t)q * CH;
+      const int ch = min(CH, col_block - q * CH);
+      const float* yb = ys + b * d * CH;
+      cp_async_wait_all();
+      __syncthreads();  // chunk q staged; chunk q - 1 computed
+      if (q + 1 < n_chunks) {
+        mt_stage_cols16<CH>(ys + (b ^ 1) * d * CH, cols_t, n_pad, d,
+                            col0 + CH, min(CH, col_block - (q + 1) * CH),
+                            n_valid);
+        cp_async_commit();
+      }
+      // the chunk's ones per row as float bits: at most CH / MT_TC < 512
+      unsigned ones[NR][MT_RM];
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) ones[r][m] = 0u;
+      for (int cbase = 0; cbase < ch; cbase += MT_STEP) {
+        float d2[MT_RM][MT_RN];
+        mt_dist2<DT, CH>(x, yb, d, cbase + MT_RN * tc, d2);
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int m = 0; m < MT_RM; ++m)
+#pragma unroll
+            for (int n = 0; n < MT_RN; ++n)
+              ones[r][m] +=
+                  __float_as_uint(rad.template w<EXACT>(r, d2[m][n]));
+      }
+#pragma unroll
+      for (int r = 0; r < NR; ++r)
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) cnt[r][m] += decode_ones(ones[r][m]);
+    }
+
+    // rows: fold across the MT_TC threads of each row
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+#pragma unroll
+      for (int m = 0; m < MT_RM; ++m) {
+        int c = cnt[r][m];
+#pragma unroll
+        for (int off = MT_TC / 2; off > 0; off >>= 1)
+          c += __shfl_xor_sync(FULL_MASK, c, off);
+        if (tc == 0 && ok[m] && r < n_radii && c != 0)
+          atomicAdd(&out[(int64_t)r * r_pad + row[m]], c);
+      }
+    }
+  }
+}
+
+// The exact compare for radii below 2^-100, in one runtime-D instance per
+// radius bucket (its 32-column chunks fit every instance's buffers).
+template <int NR>
+__device__ __noinline__ void count_cell_exact(
+    CountRadii<NR> rad, float* ys, const float* __restrict__ rows_t,
+    int64_t r_pad, const float* __restrict__ cols_t, int64_t n_pad, int d,
+    int n_radii, int n_valid, int64_t row0, int64_t colbase, int row_block,
+    int col_block, int* __restrict__ out) {
+  count_cell<0, NR, true>(rad, ys, rows_t, r_pad, cols_t, n_pad, d, n_radii,
+                          n_valid, row0, colbase, row_block, col_block, out);
+}
+
+// -- nearest-neighbour keys on the micro-tiles (nn_bidir, nn_tiles) ----------
+//
+// A (d2, original id) minimum is the 64-bit key (float_bits(d2) << 32) | id
+// (d2 >= 0 keeps the bit order equal to the lexicographic order, so
+// atomicMin on it is exact in any order). Kernels compare keys shifted by
+// 2^32, s = key - 2^32 (the d2 word minus one, as unsigned): d2 = 0 wraps
+// to the top and never wins, so "d2 > 0" costs no test, and every held
+// minimum starts at most at INF0 = (bits(inf) - 1) << 32, which an
+// infinite or NaN d2 (pads, and NaN-staged frames) can never beat.
+
+using u64 = unsigned long long;
+
+constexpr u64 ONE_HI = 1ull << 32;
+// shifted-domain "none": an infinite d2 with id 0, above every finite key
+constexpr u64 INF0 = 0x7F7FFFFFull << 32;
+
+// the shifted key of a buffer key, at most INF0
+__device__ __forceinline__ u64 shift_key(u64 key) {
+  const u64 s = key - ONE_HI;
+  return s < INF0 ? s : INF0;
+}
+
+// the filter threshold of a frame's two held keys: nextafter(d2 of the
+// larger, +inf), +inf for INF0; a pair with d2 - T >= 0 (or NaN) can
+// lower neither key
+__device__ __forceinline__ float filter_t(u64 nh, u64 hd) {
+  const unsigned hi = (unsigned)((nh > hd ? nh : hd) >> 32);
+  return __uint_as_float(min(hi + 2u, 0x7F800000u));
+}
+
+__device__ __forceinline__ u64 skey(float d2, int oid) {
+  return ((u64)(__float_as_uint(d2) - 1u) << 32) | (unsigned)oid;
+}
+
+// minimum over the MT_TC threads of a row
+__device__ __forceinline__ u64 warp_min8(u64 v, unsigned mask) {
+#pragma unroll
+  for (int off = MT_TC / 2; off > 0; off >>= 1) {
+    const u64 o = __shfl_xor_sync(mask, v, off);
+    v = o < v ? o : v;
+  }
+  return v;
+}
 }  // namespace ck
 
 // Dispatch a counting kernel on the number of radii of one launch,

@@ -34,11 +34,9 @@
 //    still loose costs its own row or column, not the whole step. The
 //    held keys are never below the final minima, so the filter drops only
 //    pairs that cannot matter;
-//  - keys are compared in a shifted domain, s = key - 2^32 (the d2 word
-//    minus one, as unsigned): d2 = 0 wraps to the top and never wins, so
-//    "d2 > 0" costs no test, and every held minimum starts at most at
-//    INF0 = (bits(inf) - 1) << 32, which an infinite or NaN d2 (pads, and
-//    the NaN-staged frames outside the sweep) can never beat;
+//  - keys are compared in the shifted domain of common.cuh (shift_key,
+//    skey): d2 = 0 never wins, and an infinite or NaN d2 (pads, and the
+//    NaN-staged frames outside the sweep) never beats a held minimum;
 //  - row minima start from the frame's keys in the buffer, read once per
 //    tile, and fold across the MT_TC threads of a row by shuffles at the
 //    pass's end: one atomicMin per row and side, only on improvement;
@@ -58,38 +56,7 @@
 
 namespace {
 
-using u64 = unsigned long long;
-
-constexpr u64 ONE_HI = 1ull << 32;
-// shifted-domain "none": an infinite d2 with id 0, above every finite key
-constexpr u64 INF0 = 0x7F7FFFFFull << 32;
-
-// the shifted key of a buffer key, at most INF0
-__device__ __forceinline__ u64 shift_key(u64 key) {
-  const u64 s = key - ONE_HI;
-  return s < INF0 ? s : INF0;
-}
-
-// the filter threshold of a frame's two held keys: nextafter(d2 of the
-// larger, +inf), +inf for INF0; a pair with d2 - T >= 0 (or NaN) can
-// lower neither key
-__device__ __forceinline__ float filter_t(u64 nh, u64 hd) {
-  const unsigned hi = (unsigned)((nh > hd ? nh : hd) >> 32);
-  return __uint_as_float(min(hi + 2u, 0x7F800000u));
-}
-
-__device__ __forceinline__ u64 skey(float d2, int oid) {
-  return ((u64)(__float_as_uint(d2) - 1u) << 32) | (unsigned)oid;
-}
-
-__device__ __forceinline__ u64 warp_min8(u64 v, unsigned mask) {
-#pragma unroll
-  for (int off = ck::MT_TC / 2; off > 0; off >>= 1) {
-    const u64 o = __shfl_xor_sync(mask, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
-}
+using ck::u64;
 
 template <int DT>
 __global__ void __launch_bounds__(ck::MT_MAX_TR * ck::MT_TC,

@@ -27,8 +27,9 @@
 //
 // What bounds it on the H100: the FP32 pipe, 3 * D flops per pair of a
 // kept tile (D subtractions, D fmas), beside the count. A kept cell runs
-// on the register micro-tiles of common.cuh, as pops_bidir.cu without its
-// column side and diagonal: a thread holds MT_RM rows for the pass and
+// ck::count_cell (common.cuh, shared with pops_sparse.cu, which drives it
+// by a tile list) on the register micro-tiles, as pops_bidir.cu without
+// its column side and diagonal: a thread holds MT_RM rows for the pass and
 // evaluates MT_RM x MT_RN pairs per step (16 independent fma chains, one
 // float4 of columns per dimension); 512-column chunks come in by 16-byte
 // cp.async, double-buffered; columns at or past n_valid are staged as
@@ -44,112 +45,6 @@
 #include "common.cuh"
 
 namespace {
-
-// The passes of one kept cell: its rows against the chunks of its
-// columns below n_valid. ys holds two chunks.
-template <int DT, int NR, bool EXACT>
-__device__ __forceinline__ void count_cell(
-    const ck::CountRadii<NR>& rad, float* ys,
-    const float* __restrict__ rows_t, int64_t r_pad,
-    const float* __restrict__ cols_t, int64_t n_pad, int d, int n_radii,
-    int n_valid, int64_t row0, int64_t colbase, int row_block,
-    int col_block, int* __restrict__ out) {
-  using namespace ck;
-  constexpr int CH = MtChunk<DT>::value;
-  const int tid = threadIdx.x;
-  const int tc = tid % MT_TC;
-  const int tr = tid / MT_TC;
-  const int n_tr = blockDim.x / MT_TC;
-  const int rows_per_pass = n_tr * MT_RM;
-  const int n_chunks =
-      (int)((min((int64_t)col_block, n_valid - colbase) + CH - 1) / CH);
-
-  for (int p0 = 0; p0 < row_block; p0 += rows_per_pass) {
-    int64_t row[MT_RM];
-    bool ok[MT_RM];
-#pragma unroll
-    for (int m = 0; m < MT_RM; ++m) {
-      const int r = p0 + tr + n_tr * m;
-      row[m] = row0 + r;
-      ok[m] = r < row_block;
-    }
-    MtRows<DT> x;
-    x.load(rows_t, r_pad, d, row, ok);
-    int cnt[NR][MT_RM];
-#pragma unroll
-    for (int r = 0; r < NR; ++r)
-#pragma unroll
-      for (int m = 0; m < MT_RM; ++m) cnt[r][m] = 0;
-
-    __syncthreads();  // the previous pass or cell is done with both buffers
-    mt_stage_cols16<CH>(ys, cols_t, n_pad, d, colbase, min(CH, col_block),
-                        n_valid);
-    cp_async_commit();
-
-    for (int q = 0; q < n_chunks; ++q) {
-      const int b = q & 1;
-      const int64_t col0 = colbase + (int64_t)q * CH;
-      const int ch = min(CH, col_block - q * CH);
-      const float* yb = ys + b * d * CH;
-      cp_async_wait_all();
-      __syncthreads();  // chunk q staged; chunk q - 1 computed
-      if (q + 1 < n_chunks) {
-        mt_stage_cols16<CH>(ys + (b ^ 1) * d * CH, cols_t, n_pad, d,
-                            col0 + CH, min(CH, col_block - (q + 1) * CH),
-                            n_valid);
-        cp_async_commit();
-      }
-      // the chunk's ones per row as float bits: at most CH / MT_TC < 512
-      unsigned ones[NR][MT_RM];
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int m = 0; m < MT_RM; ++m) ones[r][m] = 0u;
-      for (int cbase = 0; cbase < ch; cbase += MT_STEP) {
-        float d2[MT_RM][MT_RN];
-        mt_dist2<DT, CH>(x, yb, d, cbase + MT_RN * tc, d2);
-#pragma unroll
-        for (int r = 0; r < NR; ++r)
-#pragma unroll
-          for (int m = 0; m < MT_RM; ++m)
-#pragma unroll
-            for (int n = 0; n < MT_RN; ++n)
-              ones[r][m] +=
-                  __float_as_uint(rad.template w<EXACT>(r, d2[m][n]));
-      }
-#pragma unroll
-      for (int r = 0; r < NR; ++r)
-#pragma unroll
-        for (int m = 0; m < MT_RM; ++m) cnt[r][m] += decode_ones(ones[r][m]);
-    }
-
-    // rows: fold across the MT_TC threads of each row
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-#pragma unroll
-      for (int m = 0; m < MT_RM; ++m) {
-        int c = cnt[r][m];
-#pragma unroll
-        for (int off = MT_TC / 2; off > 0; off >>= 1)
-          c += __shfl_xor_sync(FULL_MASK, c, off);
-        if (tc == 0 && ok[m] && r < n_radii && c != 0)
-          atomicAdd(&out[(int64_t)r * r_pad + row[m]], c);
-      }
-    }
-  }
-}
-
-// The exact compare for radii below 2^-100, in one runtime-D instance per
-// radius bucket (its 32-column chunks fit every instance's buffers).
-template <int NR>
-__device__ __noinline__ void count_cell_exact(
-    ck::CountRadii<NR> rad, float* ys, const float* __restrict__ rows_t,
-    int64_t r_pad, const float* __restrict__ cols_t, int64_t n_pad, int d,
-    int n_radii, int n_valid, int64_t row0, int64_t colbase, int row_block,
-    int col_block, int* __restrict__ out) {
-  count_cell<0, NR, true>(rad, ys, rows_t, r_pad, cols_t, n_pad, d, n_radii,
-                          n_valid, row0, colbase, row_block, col_block, out);
-}
 
 template <int DT, int NR>
 __global__ void __launch_bounds__(ck::MT_MAX_TR * ck::MT_TC,
@@ -175,10 +70,10 @@ pops_tiles_kernel(const float* __restrict__ rows_t, int64_t r_pad,
   ck::CountRadii<NR> rad;
   rad.setup(radii2, n_radii, ~0u);
   if (rad.exact)
-    count_cell_exact<NR>(rad, ys, rows_t, r_pad, cols_t, n_pad, d, n_radii,
+    ck::count_cell_exact<NR>(rad, ys, rows_t, r_pad, cols_t, n_pad, d, n_radii,
                          n_valid, row0, colbase, row_block, col_block, out);
   else
-    count_cell<DT, NR, false>(rad, ys, rows_t, r_pad, cols_t, n_pad, d,
+    ck::count_cell<DT, NR, false>(rad, ys, rows_t, r_pad, cols_t, n_pad, d,
                               n_radii, n_valid, row0, colbase, row_block,
                               col_block, out);
 }

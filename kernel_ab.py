@@ -15,19 +15,20 @@ other kernel comes from the current sources. In one process, in the order
 old, new, new, old:
 
   1. the engines' pipeline of ``chip_smoke.py`` phase 6 (populations, NN,
-     screening set-up and four screening steps) and the skip-word route of
-     phase 7 (populations and the two-pass NN through ``pops_tiles`` /
-     ``nn_tiles``, held against that run's engine results), with the stage
-     walls on the host clock, after one untimed warm-up run; every run
-     must give identical populations, nn ids, nn distances (bit for bit)
-     and clusterings;
+     screening set-up and four screening steps) on the bidirectional
+     route, the skip-word route of phase 7 (populations and the two-pass
+     NN through ``pops_tiles`` / ``nn_tiles``) and, when a row-side kernel
+     (``pops_sparse``, ``nn_sparse``, ``label_min_sparse``) is named, the
+     engines once more on the symmetric route (the three bidirectional
+     switches off), each held against the first, with the stage walls on
+     the host clock, after one untimed warm-up run; every run must give
+     identical populations, nn ids, nn distances (bit for bit) and
+     clusterings;
   2. the recorded calls of the named kernels from the first run replayed
      through each version, kernel time summed over the calls (CUDA
      events); outputs must be identical between the versions.
 
-The engines take the bidirectional route, so of the row-side kernels
-(``pops_sparse``, ``nn_sparse``, ``label_min_sparse``) no call is
-recorded. Prints one JSON line and writes it to ``--out``.
+Prints one JSON line and writes it to ``--out``.
 """
 
 import argparse
@@ -97,12 +98,23 @@ def same_results(a, b):
     return all(np.array_equal(x, y) for x, y in zip(clust_a, clust_b))
 
 
-def run_paths(torch, coords):
-    """The engines' pipeline, then the skip-word route held against it.
-    Returns ((pops, nn, clusterings), engine walls, skip-word walls)."""
+def run_paths(torch, coords, symmetric):
+    """The engines' pipeline, then the skip-word route and, if
+    ``symmetric``, the engines' symmetric route, each held against it.
+    Returns ((pops, nn, clusterings), {route: stage walls})."""
     pops, nn, clust, walls, _ = cs.run_engines(torch, coords)
     _, skip_walls = cs.phase_skip_words(torch, pops, nn)
-    return (pops, nn, clust), walls, skip_walls
+    routes = {"bidir": walls, "skip_words": skip_walls}
+    if symmetric:
+        with cs.bidir_switches(False):
+            *sym, sym_walls, modes = cs.run_engines(torch, coords)
+        if set(modes.values()) != {"symmetric"}:
+            cs.fail(f"the symmetric run took another route: {modes}")
+        if not same_results((pops, nn, clust), sym):
+            cs.fail("the symmetric run's results differ from the"
+                    " bidirectional run's")
+        routes["symmetric"] = sym_walls
+    return (pops, nn, clust), routes
 
 
 def main():
@@ -122,19 +134,20 @@ def main():
     switch = Switch(_build.library(), build_old(args.old, names), names)
     _build.library = lambda: switch
     coords = cs.synthetic_fel(cs.N_MAIN, cs.DIM, seed=0)
+    symmetric = any(k in cs.SPARSE_KERNELS for k in names)
 
     # one untimed run first: the CUDA context, the library loads and the
     # allocator's first growth stay out of the walls
-    run_paths(torch, coords)
+    run_paths(torch, coords, symmetric)
     walls, calls, first = [], None, None
     for version in ORDER:
         switch.use = version
         with cs.record_calls(names) as rec:
-            results, w, w_skip = run_paths(torch, coords)
-        walls.append({"version": version, "stages": w, "skip_words": w_skip,
+            results, routes = run_paths(torch, coords, symmetric)
+        walls.append({"version": version, **routes,
                       "calls": {k: len(rec[k]) for k in names}})
-        print(f"[ab] {version}: stages {json.dumps(w)}, skip words"
-              f" {json.dumps(w_skip)}")
+        print(f"[ab] {version}: " + ", ".join(
+            f"{route} {json.dumps(w)}" for route, w in routes.items()))
         if first is None:
             first, calls = results, rec
         elif not same_results(first, results):

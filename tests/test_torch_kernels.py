@@ -451,3 +451,86 @@ def test_cuda_pops_bidir_edge_radii_match_plain(d, which):
     args = (ct_d, radii2, n, ti_d, tj_d, rmask, 64, 256)
     got = kernels.pops_bidir(*args)
     assert torch.equal(got, kernels.pops_bidir_plain(*args))
+
+
+def _sparse_case(d, rb, cb, seed):
+    """Cross-form inputs of a row-side kernel: columns with duplicates and
+    n_valid inside a column block; rows of their own (copies of columns
+    first, then jittered frames, then a pad-only row block); a row-major
+    tile list of the grid with tj = -1 entries. Returns (n, rows_t,
+    cols_t, ti, tj) as numpy arrays."""
+    rng = np.random.default_rng(seed)
+    n = 3 * cb + cb // 2 + 5
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[:8] = c[0]
+    cols_t = np.full((d, -(-n // cb) * cb), np.float32(3e38), np.float32)
+    cols_t[:, :n] = c.T
+    rows_t = np.full((d, 6 * rb), np.float32(3e38), np.float32)
+    rows_t[:, :5 * rb] = (c[rng.integers(0, n, size=5 * rb)]
+                          + rng.normal(0.0, 0.02, size=(5 * rb, d))).T
+    rows_t[:, :3] = c[[0, 1, n - 1]].T
+    act = rng.random((6, cols_t.shape[1] // cb)) < 0.7
+    act[0] = True
+    ti, tj = np.nonzero(act)
+    ti = np.append(ti, [0, 5]).astype(np.int32)
+    tj = np.append(tj, [-1, -1]).astype(np.int32)
+    return n, rows_t, cols_t, ti, tj
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64), (16, 24)])
+def test_cuda_redesigned_pops_sparse_matches_plain(d, rb, cb):
+    """The micro-tiled pops_sparse against its plain version with 1, 3, 8
+    and 9 radii (9: two launches), tie radii (squares equal to pairs' d2)
+    and r = 0, a random partial rmask per tile with rmask = 0 entries, tj
+    = -1 entries (one with a non-zero rmask), a row set of its own with a
+    pad-only row block and n_valid inside a column block: counts exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n, rows_t, cols_t, ti, tj = _sparse_case(d, rb, cb, seed=500 + d + rb)
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    rows_d, ct_d, ti_d, tj_d = map(put, (rows_t, cols_t, ti, tj))
+    x = torch.cat([rows_d.T, ct_d.T])
+    r_pad = rows_t.shape[1]
+    radii2 = _tie_radii2(x, ((0, r_pad + 3), (1, r_pad + n - 2),
+                             (2, r_pad + 40)),
+                         [0.0, 0.002 * d, 0.01 * d, 0.04 * d, 0.1 * d,
+                          0.4 * d])
+    rng = np.random.default_rng(d + rb)
+    kernels.reset_launches()
+    for k in (1, 3, 8, 9):
+        rmask = rng.integers(0, 1 << k, size=len(ti)).astype(np.int32)
+        rmask[::7] = (1 << k) - 1
+        rmask[-1] = 1  # tj = -1 gates it off whatever its rmask
+        args = (rows_d, ct_d, radii2[:k].contiguous(), n, ti_d, tj_d,
+                put(rmask), rb, cb)
+        got = kernels.pops_sparse(*args)
+        assert torch.equal(got, kernels.pops_sparse_plain(*args)), k
+        assert got[:, 5 * rb:].eq(0).all()
+    assert bool((got[:, :rb] > 1).any())
+    assert kernels.LAUNCHES["pops_sparse"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 17])
+@pytest.mark.parametrize("which", sorted(EDGE_RADII2))
+def test_cuda_pops_sparse_edge_radii_match_plain(d, which):
+    """pops_sparse with radii at the edges of its one-fma count and a tie
+    radius under a partial rmask (r = 0 takes the exact instance only in
+    the tiles whose rmask turns it on), on a row set with a pad-only row
+    block (d2 = inf: inf counts it, FLT_MAX does not), against its plain
+    version: counts exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    n, rows_t, cols_t, ti, tj = _sparse_case(d, 32, 64, seed=600 + d)
+    put = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    rows_d, ct_d = put(rows_t), put(cols_t)
+    radii2 = _tie_radii2(torch.cat([rows_d.T, ct_d.T]),
+                         ((0, rows_t.shape[1] + 9),), EDGE_RADII2[which])
+    rmask = np.random.default_rng(d).integers(0, 256, size=len(ti))
+    rmask[::3] = 255
+    args = (rows_d, ct_d, radii2, n, put(ti), put(tj),
+            put(rmask.astype(np.int32)), 32, 64)
+    got = kernels.pops_sparse(*args)
+    assert torch.equal(got, kernels.pops_sparse_plain(*args))

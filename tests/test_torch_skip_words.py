@@ -286,6 +286,59 @@ def test_nn_tiles_match_pallas(d, rb, cb):
     assert kernels.LAUNCHES == before
 
 
+def _lattice_nn(n, d, rb, cb, seed):
+    """Frames on a coarse lattice (coordinates multiples of 1/4, exact in
+    float32: many d2 tie exactly and the smaller original id decides),
+    frames 0..4 one point (d2 = 0 is never a neighbour), quantised fe (equal
+    fe is not lower; the frames at the lowest fe have no lower-fe frame),
+    permuted original ids: (coords, padded, fe (1, N_pad), oid (1, N_pad))."""
+    rng = np.random.default_rng(seed)
+    c = (rng.integers(-4, 5, size=(n, d)) / np.float32(4.0)).astype(
+        np.float32)
+    c[:5] = c[0]
+    padded = _pad(c, int(np.lcm(rb, cb)))
+    fe = np.full((1, len(padded)), np.inf, np.float32)
+    fe[0, :n] = rng.integers(0, 3, size=n) / np.float32(2.0)
+    oid = np.full((1, len(padded)), IMAX, np.int32)
+    oid[0, :n] = rng.permutation(n)
+    return c, padded, fe, oid
+
+
+@pytest.mark.parametrize("d,rb,cb", [(1, 8, 16), (3, 16, 24), (4, 8, 16)])
+def test_nn_tiles_lattice_ties_match_pallas(d, rb, cb):
+    """nn_tiles on lattice frames (exact d2 ties broken by the smaller
+    original id), duplicates, equal free energies and frames with no
+    lower-fe frame, under random skip words with a wholly skipped row
+    block: the plain version against the Pallas kernel, ids exact and
+    distances bit-equal."""
+    n = 230
+    c, padded, fe, oid = _lattice_nn(n, d, rb, cb, seed=80 + d)
+    ct = np.ascontiguousarray(padded.T)
+    nrb, ncb = len(padded) // rb, len(padded) // cb
+    rng = np.random.default_rng(d)
+    skip = rng.random((nrb, ncb)) < 0.3
+    skip[1] = True
+    words, _ = tpruning.pack_skip_words(skip)
+    want = pk.nn_tiles(ct, fe, oid, n, words, rb, cb)
+    got = kernels.nn_tiles(_t(ct), _t(fe), _t(oid), n, _t(words), rb, cb)
+    _assert_nn_equal(got, want)
+    nh_d, nh_j, hd_d, hd_j = (a.numpy()[0] for a in got)
+    # the kept cells hold exact ties at a row's minimum, won by the
+    # smaller original id
+    d2 = sq_dists(_t(c), _t(c)).numpy()
+    keep = ~np.repeat(np.repeat(skip, rb, 0), cb, 1)[:n, :n]
+    cand = keep & (d2 > 0) & (d2 == nh_d[:n, None])
+    n_tied = cand.sum(axis=1)
+    assert (n_tied > 1).sum() > n // 4
+    tied = np.flatnonzero(n_tied > 1)
+    ids = np.where(cand[tied], oid[0, :n][None, :], IMAX).min(axis=1)
+    np.testing.assert_array_equal(nh_j[tied], ids)
+    assert (nh_d[:n][np.isfinite(nh_d[:n])] > 0).all()
+    lowest = np.flatnonzero(fe[0, :n] == 0.0)
+    assert np.isinf(hd_d[lowest]).all() and (hd_j[lowest] == IMAX).all()
+    assert np.isfinite(hd_d[:n]).sum() > n // 2
+
+
 # -- the slice as a whole ---------------------------------------------------------
 
 def _skip_word_slice(pkg, put, get, coords, radius, rb, cb):
@@ -502,3 +555,60 @@ def test_cuda_pops_tiles_edge_radii_match_plain(d, which):
     args = (rows_t, ct, radii2, n, put(words), 32, 64)
     got = kernels.pops_tiles_cross(*args)
     assert torch.equal(got, kernels.pops_tiles_cross_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64), (16, 24)])
+def test_cuda_redesigned_nn_tiles_match_plain(d, rb, cb):
+    """The micro-tiled nn_tiles against its plain version on lattice frames
+    (exact d2 ties: the smaller original id decides), duplicated frames
+    (d2 = 0 is never a candidate), equal free energies (not lower) and
+    rows with no lower-fe frame: the cross form on a row set of its own
+    (copies of columns, a pad-only row block) under random skip words with
+    bit 31 set and a wholly skipped row block, then the square form under
+    band words over the padded frames; ids exact, distances bit-equal."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(700 + d + rb)
+    n = 33 * cb + cb // 2 + 5
+    c, padded, fe, oid = _lattice_nn(n, d, rb, cb, seed=d + rb)
+    rows = np.full((6 * rb, d), PAD, np.float32)
+    pick = rng.integers(0, n, size=5 * rb)
+    pick[:3] = [0, 1, n - 1]
+    rows[:5 * rb] = c[pick]
+    fe_r = np.full((1, len(rows)), np.inf, np.float32)
+    fe_r[0, :5 * rb] = fe[0, pick]
+    fe_r[0, 7] = -1.0  # below every column: no lower-fe frame
+    nrb, ncb = len(rows) // rb, len(padded) // cb
+    assert ncb > 32
+    skip = rng.random((nrb, ncb)) < 0.4
+    skip[:, 31] = True
+    skip[2] = True
+    skip[0, [0, ncb - 1]] = False
+    words, _ = tpruning.pack_skip_words(skip)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    ct, fe_d, oid_d = put(padded.T), put(fe), put(oid)
+    kernels.reset_launches()
+    args = (put(rows.T), put(fe_r), ct, fe_d, oid_d, n, put(words), rb, cb)
+    got = kernels.nn_tiles_cross(*args)
+    want = kernels.nn_tiles_cross_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    nh_d, nh_j, hd_d, _ = (a[0] for a in got)
+    assert torch.isinf(nh_d[2 * rb:3 * rb]).all()
+    assert bool((nh_j[2 * rb:3 * rb] == IMAX).all())
+    assert torch.isinf(hd_d[7]) and torch.isfinite(hd_d).any()
+    assert bool((nh_d[torch.isfinite(nh_d)] > 0).all())
+
+    words = put(tpruning.band_skip_words(len(padded) // rb, ncb, rb, cb,
+                                         2 * cb)[0])
+    args = (ct, fe_d, ct, fe_d, oid_d, n, words, rb, cb)
+    got = kernels.nn_tiles(ct, fe_d, oid_d, n, words, rb, cb)
+    for g, w in zip(got, kernels.nn_tiles_cross_plain(*args)):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert torch.isfinite(got[0][0, :n]).all()
+    assert kernels.LAUNCHES["nn_tiles"] == 2

@@ -86,6 +86,60 @@ def test_pops_sparse_matches_pallas(d):
     assert kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize("d,rb,cb", [(1, 8, 16), (3, 16, 24), (4, 8, 16)])
+def test_pops_sparse_nine_radii_ties_and_partial_rmask_match_pallas(d, rb,
+                                                                   cb):
+    """Nine radii (two launch groups on the card), four of them ties -- the
+    squared radius equals a row's fma-chain d2 to a column -- and one of 0,
+    under a random partial rmask per tile (the tie bits set on the tie
+    rows' tiles), with tj = -1 and rmask = 0 entries and n_valid inside a
+    column block: the plain version against the Pallas kernel, exact."""
+    rng = np.random.default_rng(90 + d)
+    n = 230
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[n // 2:] += np.float32(1.0)
+    c[:4] = c[0]
+    rows = np.concatenate([c[[0, 9, 120, 200]],
+                           rng.normal(0.5, 0.5, size=(3 * rb - 4, d))])
+    rows_t = _padded_t(rows.astype(np.float32), rb)
+    cols_t = _padded_t(c, cb)
+    assert n % cb and rows_t.shape[1] != cols_t.shape[1]
+    pairs = ((0, 5), (1, 30), (2, 121), (3, 229))  # (row, column)
+    x = torch.from_numpy(np.concatenate([rows_t.T, cols_t.T]))
+    ties = [float(tdops.sq_dists(x[i:i + 1], x[len(rows_t.T) + j:
+                                               len(rows_t.T) + j + 1])[0, 0])
+            for i, j in pairs]
+    radii2 = np.asarray(ties + [0.0, 0.01, 0.05, 0.2, 0.5], np.float32)
+    act = rng.random((rows_t.shape[1] // rb, cols_t.shape[1] // cb)) < 0.8
+    act[0] = True  # the tie rows' tiles
+    ti, tj = (a.astype(np.int32) for a in np.nonzero(act))
+    rmask = rng.integers(0, 1 << 9, size=len(ti)).astype(np.int32)
+    rmask[rng.random(len(ti)) < 0.1] = 0
+    rmask[ti == 0] |= 0b11111
+    # no-op pad entries, as the JAX planner emits them
+    ti = np.append(ti, [ti[-1], ti[-1]]).astype(np.int32)
+    tj = np.append(tj, [-1, -1]).astype(np.int32)
+    rmask = np.append(rmask, [0, 0]).astype(np.int32)
+    assert (rmask == 0).sum() > 1 and ((rmask != 0) & (rmask != 511)).any()
+    want = np.asarray(pk.pops_tiles_sparse_cross(
+        rows_t, cols_t, radii2, np.int32(n), ti, tj, rmask=rmask,
+        row_block=rb, col_block=cb))
+
+    def run(r2):
+        return kernels.pops_sparse(
+            torch.from_numpy(rows_t), torch.from_numpy(cols_t),
+            torch.from_numpy(r2), n, torch.from_numpy(ti),
+            torch.from_numpy(tj), torch.from_numpy(rmask), rb, cb).numpy()
+
+    got = run(radii2)
+    np.testing.assert_array_equal(want, got)
+    assert (got[4, :4] >= 1).all()  # r = 0: the rows that are columns
+    # each tie radius counts its pair: one ulp less counts fewer
+    fewer = run(np.nextafter(radii2[:4], np.float32(-np.inf)))
+    for k, (i, _) in enumerate(pairs):
+        assert fewer[k, i] < got[k, i]
+
+
 @pytest.mark.parametrize("d", [2, 3, 4])
 def test_nn_sparse_matches_pallas(d):
     rows_t, cols_t, n = _cross(d, seed=20 + d)
