@@ -12,12 +12,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      upper-triangular lists for the bidirectional kernels; the full
      populations plane, the band without closure and the full screening
      list, all columns dirty and a dirty subset, for the row-side
-     kernels) and, for the dense-grid kernels, on the Morton layout's
-     skip words (radius words for ``pops_tiles``; band words, then the
-     band's bound words, for ``nn_tiles``), and the three counting kernels
-     once more with three radii (``pops_bidir`` and ``pops_sparse`` under
-     a random partial rmask): counts, ids and labels exact, distances
-     bit-equal;
+     kernels; for those also a shuffled list each, the phase-2 call of the
+     symmetric NN search, whose rows start from the band pass's keys, and
+     the labels of a finished symmetric fixpoint, where the label-min
+     kernel's step skip fires) and, for the dense-grid kernels, on the
+     Morton layout's skip words (radius words for ``pops_tiles``; band
+     words, then the band's bound words, for ``nn_tiles``), and the three
+     counting kernels once more with three radii (``pops_bidir`` and
+     ``pops_sparse`` under a random partial rmask): counts, ids and labels
+     exact, distances bit-equal;
   4. the density CLI on cuda with ``--check`` against the same CLI on cpu
      without it at N = 2^15: the check must pass (its counts are
      printed); pop, fe and clust.* files identical, nn ids identical, nn
@@ -228,6 +231,15 @@ def rows_equal(torch):
     return compare
 
 
+def shuffled(ti, tj, seed=5):
+    """A tile list in a random order (the kernels' results cannot depend
+    on it)."""
+    import torch
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(ti)),
+                           device=ti.device)
+    return ti[perm], tj[perm]
+
+
 def kept_cells(words, nrb, ncb):
     """'kept/total cells' of a dense grid's skip words."""
     from clustering_tpu_torch.ops import kernels
@@ -314,6 +326,23 @@ def phase_kernels(torch):
          lambda: nn_run(kernels.nn_sparse, *rows),
          lambda: nn_run(kernels.nn_sparse_plain, *rows),
          keys_equal(torch, n))
+    bti, btj = shuffled(bti, btj)
+    hold(torch, "nn_sparse", f"{len(bti)} tiles shuffled",
+         lambda: nn_run(kernels.nn_sparse, *rows),
+         lambda: nn_run(kernels.nn_sparse_plain, *rows),
+         keys_equal(torch, n))
+    # the symmetric route's phase-2 call: its rows start from the band
+    # pass's keys, which the recorded buffer holds
+    with bidir_switches(False), record_calls(["nn_sparse"]) as rec:
+        eng.nearest_neighbors(fe)
+    (p2, _), = rec["nn_sparse"][-1:]
+
+    def nn_phase2(fn):
+        return fn(*p2[:9], p2[9].clone(), *p2[10:])
+
+    hold(torch, "nn_sparse", f"phase-2 list, {len(p2[7])} tiles, keys from"
+         " the band pass", lambda: nn_phase2(kernels.nn_sparse),
+         lambda: nn_phase2(kernels.nn_sparse_plain), keys_equal(torch, n))
 
     # the dense-grid kernels on the Morton layout: radius skip words for
     # the counts; band words, then the band's bound words, for NN
@@ -384,6 +413,20 @@ def phase_kernels(torch):
         largs = (seng.coords_t, seng.coords_t, labels, nb, md2, sti, stj, 0,
                  dirty, rb, cb)
         hold(torch, "label_min_sparse", f"{len(tiles[0])} tiles, {what}",
+             lambda: kernels.label_min_sparse(*largs),
+             lambda: kernels.label_min_sparse_plain(*largs),
+             exact("proposal"))
+    # the labels of a finished symmetric fixpoint (the step skip's path),
+    # every column block dirty, on the list and on the list shuffled
+    with bidir_switches(False):
+        final = seng.run_device(labels, nb, md2)
+    dirty = torch.ones(ncb, dtype=torch.int32, device=dev)
+    for what, (lti, ltj) in (("", (sti, stj)),
+                             (" shuffled", shuffled(sti, stj))):
+        largs = (seng.coords_t, seng.coords_t, final, nb, md2, lti, ltj, 0,
+                 dirty, rb, cb)
+        hold(torch, "label_min_sparse",
+             f"{len(tiles[0])} tiles{what}, labels of a finished fixpoint",
              lambda: kernels.label_min_sparse(*largs),
              lambda: kernels.label_min_sparse_plain(*largs),
              exact("proposal"))
@@ -767,11 +810,12 @@ def record_calls(names):
             setattr(kernels, attr, fn)
 
 
-def replay(torch, name, fn, calls):
+def replay(torch, name, fn, calls, per_call=None):
     """Run ``fn`` on every recorded call of kernel ``name`` (in-place
     arguments fresh from the record); returns (outputs, device ms summed
-    over the calls). Each call is timed with CUDA events behind a short
-    device sleep, so the host's enqueue time stays out of the window."""
+    over the calls), and appends each call's ms to ``per_call`` if given.
+    Each call is timed with CUDA events behind a short device sleep, so
+    the host's enqueue time stays out of the window."""
     outs, ms = [], 0.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -786,6 +830,8 @@ def replay(torch, name, fn, calls):
         end.record()
         torch.cuda.synchronize()
         ms += start.elapsed_time(end)
+        if per_call is not None:
+            per_call.append(start.elapsed_time(end))
         outs.append(out)
     return outs, ms
 

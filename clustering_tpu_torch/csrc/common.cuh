@@ -7,8 +7,8 @@
 // of this file) thread t holds row ti*row_block + t, with its D
 // coordinates in registers when D is a compile-time constant, and columns
 // are staged through shared memory in chunks of CHUNK frames. The
-// register micro-tiles of the second part serve nn_bidir, nn_tiles,
-// label_min_bidir, pops_bidir, pops_tiles and pops_sparse.
+// register micro-tiles of the second part serve the eight tile-sweep
+// kernels.
 //
 // Distance arithmetic is the plain fma chain from zero, in ascending
 // dimension order: diff = x - y; acc = fma(diff, diff, acc). It is
@@ -100,8 +100,7 @@ inline size_t col_smem_bytes(int dt, int d) {
 
 }  // namespace ck
 
-// -- register micro-tiles (the bidirectional kernels, pops_tiles, ----------
-// -- pops_sparse, nn_tiles) ---------------------------------------------------
+// -- register micro-tiles ----------------------------------------------------
 //
 // A CTA of TR x MT_TC threads sweeps a tile in row passes of TR * MT_RM
 // rows. Thread (tr, tc) owns the MT_RM rows p0 + tr + TR * m in registers
@@ -171,18 +170,20 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-// mt_stage_cols by 16-byte copies (the counting kernels): four columns of
-// one dimension per copy where the source is 16-byte aligned and all four
-// lie inside the chunk and below n_limit; the other groups are loaded
-// element by element, NaN outside. A thread issues d * CH / 4 / blockDim
-// copies per chunk with little index arithmetic; the 4-byte copies of
-// mt_stage_cols spend dozens of instructions on each column.
+// mt_stage_cols by 16-byte copies: four columns of one dimension per copy
+// where the source is 16-byte aligned and all four lie inside the chunk
+// and below n_limit; the other groups are loaded element by element,
+// `fill` outside (NaN unless given; int32 rows go through as their bits).
+// A thread issues d * CH / 4 / blockDim copies per chunk with little index
+// arithmetic; the 4-byte copies of mt_stage_cols spend dozens of
+// instructions on each column.
 template <int CH>
 __device__ __forceinline__ void mt_stage_cols16(float* ys,
                                                 const float* __restrict__ ct,
                                                 int64_t n_pad, int d,
                                                 int64_t col0, int ch,
-                                                int64_t n_limit) {
+                                                int64_t n_limit,
+                                                float fill = qnan()) {
   constexpr int G = CH / 4;  // groups of four columns per dimension
   const int nv = (int)max((int64_t)0, min((int64_t)ch, n_limit - col0));
   const bool aligned = (((uintptr_t)ct | (uintptr_t)(col0 * 4) |
@@ -196,7 +197,7 @@ __device__ __forceinline__ void mt_stage_cols16(float* ys,
       cp_async16(dst, src);
     } else {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) dst[u] = c + u < nv ? src[u] : qnan();
+      for (int u = 0; u < 4; ++u) dst[u] = c + u < nv ? src[u] : fill;
     }
   }
 }
@@ -471,7 +472,8 @@ __device__ __noinline__ void count_cell_exact(
                           n_valid, row0, colbase, row_block, col_block, out);
 }
 
-// -- nearest-neighbour keys on the micro-tiles (nn_bidir, nn_tiles) ----------
+// -- nearest-neighbour keys on the micro-tiles (nn_bidir, nn_tiles, ----------
+// -- nn_sparse) --------------------------------------------------------------
 //
 // A (d2, original id) minimum is the 64-bit key (float_bits(d2) << 32) | id
 // (d2 >= 0 keeps the bit order equal to the lexicographic order, so
@@ -505,7 +507,7 @@ __device__ __forceinline__ u64 skey(float d2, int oid) {
   return ((u64)(__float_as_uint(d2) - 1u) << 32) | (unsigned)oid;
 }
 
-// minimum over the MT_TC threads of a row
+// minimum over the MT_TC threads of a row: (d2, id) keys, or labels
 __device__ __forceinline__ u64 warp_min8(u64 v, unsigned mask) {
 #pragma unroll
   for (int off = MT_TC / 2; off > 0; off >>= 1) {
@@ -513,6 +515,160 @@ __device__ __forceinline__ u64 warp_min8(u64 v, unsigned mask) {
     v = o < v ? o : v;
   }
   return v;
+}
+
+__device__ __forceinline__ int warp_min8(int v, unsigned mask) {
+#pragma unroll
+  for (int off = MT_TC / 2; off > 0; off >>= 1)
+    v = min(v, __shfl_xor_sync(mask, v, off));
+  return v;
+}
+
+// Start the copy of chunk columns [col0, col0 + ch) into buffer `buf`:
+// coordinates, fe and original ids (the ids bit for bit through the float
+// stager; a NaN-staged column's id is never read as a candidate's).
+template <int CH>
+__device__ __forceinline__ void nn_stage_chunk(
+    float* ys, float* s_fe, int* s_oid, int buf,
+    const float* __restrict__ cols_t, int64_t n_pad, int d,
+    const float* __restrict__ fe_cols, const int* __restrict__ oid_cols,
+    int64_t col0, int ch, int n_valid) {
+  mt_stage_cols16<CH>(ys + buf * d * CH, cols_t, n_pad, d, col0, ch, n_valid);
+  mt_stage_cols16<CH>(s_fe + buf * CH, fe_cols, n_pad, 1, col0, ch, n_valid);
+  mt_stage_cols16<CH>(reinterpret_cast<float*>(s_oid + buf * CH),
+                      reinterpret_cast<const float*>(oid_cols), n_pad, 1,
+                      col0, ch, n_valid);
+  cp_async_commit();
+}
+
+// Shared memory of an nn_cell CTA: two chunks of fe, ids and coordinates.
+inline size_t nn_cell_smem_bytes(int ch, int d) {
+  return (size_t)2 * ch * (sizeof(float) + sizeof(int) + d * sizeof(float));
+}
+
+// The passes of one kept cell or tile of a row-side NN kernel (nn_tiles,
+// nn_sparse): its rows against the chunks of its columns below n_valid
+// (colbase < n_valid), folding each row's (nh, hd) minima into the two
+// key rows keys[slot] and keys[key_stride + slot]. The slot is the row
+// position (BY_ID false) or the row's original id oid_rows[row] (BY_ID
+// true); a row whose id is INT32_MAX is a pad and neither reads nor writes
+// the buffer. Row keys start from the buffer at each pass start: a held
+// key is never below the final minimum, so the filter stays exact in any
+// CTA order, and a tile that runs after another tile of its rows starts
+// from that tile's keys. smem holds two chunks (nn_cell_smem_bytes).
+template <int DT, bool BY_ID>
+__device__ __forceinline__ void nn_cell(
+    float* smem, const float* __restrict__ rows_t, int64_t r_pad,
+    const float* __restrict__ fe_rows, const int* __restrict__ oid_rows,
+    const float* __restrict__ cols_t, int64_t n_pad, int d,
+    const float* __restrict__ fe_cols, const int* __restrict__ oid_cols,
+    int n_valid, int64_t row0, int64_t colbase, int row_block, int col_block,
+    u64* __restrict__ keys, int64_t key_stride) {
+  constexpr int CH = MtChunk<DT>::value;
+  float* s_fe = smem;                                    // 2 x CH
+  int* s_oid = reinterpret_cast<int*>(s_fe + 2 * CH);    // 2 x CH
+  float* ys = reinterpret_cast<float*>(s_oid + 2 * CH);  // 2 x d * CH
+  u64* keys_hd = keys + key_stride;
+
+  const int tid = threadIdx.x;
+  const int tc = tid % MT_TC;
+  const int tr = tid / MT_TC;
+  const int n_tr = blockDim.x / MT_TC;
+  const int rows_per_pass = n_tr * MT_RM;
+  const unsigned mask = mt_warp_mask();
+  const int n_chunks =
+      (int)((min((int64_t)col_block, n_valid - colbase) + CH - 1) / CH);
+
+  for (int p0 = 0; p0 < row_block; p0 += rows_per_pass) {
+    int64_t row[MT_RM], slot[MT_RM];
+    bool ok[MT_RM];
+    float fx[MT_RM];
+    u64 rnh[MT_RM], rhd[MT_RM];
+    float t_row[MT_RM];
+#pragma unroll
+    for (int m = 0; m < MT_RM; ++m) {
+      const int r = p0 + tr + n_tr * m;
+      row[m] = row0 + r;
+      ok[m] = r < row_block;
+      slot[m] = row[m];
+      if (BY_ID) {
+        const int id = ok[m] ? oid_rows[row[m]] : 0x7fffffff;
+        ok[m] = id != 0x7fffffff;
+        slot[m] = id;
+      }
+      fx[m] = ok[m] ? fe_rows[row[m]] : qnan();
+      rnh[m] = ok[m] ? shift_key(keys[slot[m]]) : INF0;
+      rhd[m] = ok[m] ? shift_key(keys_hd[slot[m]]) : INF0;
+      t_row[m] = filter_t(rnh[m], rhd[m]);
+    }
+    MtRows<DT> x;
+    x.load(rows_t, r_pad, d, row, ok);
+
+    __syncthreads();  // the previous pass or cell is done with both buffers
+    nn_stage_chunk<CH>(ys, s_fe, s_oid, 0, cols_t, n_pad, d, fe_cols,
+                       oid_cols, colbase, min(CH, col_block), n_valid);
+
+    for (int q = 0; q < n_chunks; ++q) {
+      const int b = q & 1;
+      const int ch = min(CH, col_block - q * CH);
+      const float* yb = ys + b * d * CH;
+      const float* feb = s_fe + b * CH;
+      const int* oidb = s_oid + b * CH;
+      cp_async_wait_all();
+      __syncthreads();  // chunk q staged; chunk q - 1 computed
+      if (q + 1 < n_chunks)
+        nn_stage_chunk<CH>(ys, s_fe, s_oid, b ^ 1, cols_t, n_pad, d, fe_cols,
+                           oid_cols, colbase + (int64_t)(q + 1) * CH,
+                           min(CH, col_block - (q + 1) * CH), n_valid);
+
+      for (int cbase = 0; cbase < ch; cbase += MT_STEP) {
+        const int c0 = cbase + MT_RN * tc;
+        float d2[MT_RM][MT_RN];
+        mt_dist2<DT, CH>(x, yb, d, c0, d2);
+        // filter: the sign bit is set where d2 is below a row's threshold
+        unsigned near[MT_RM];
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) {
+          near[m] = 0;
+#pragma unroll
+          for (int n = 0; n < MT_RN; ++n)
+            near[m] |= __float_as_uint(d2[m][n] - t_row[m]);
+        }
+        if ((int)(near[0] | near[1] | near[2] | near[3]) >= 0) continue;
+
+        // exact updates, only for the rows the filter flagged
+        const float4 fy4 = *reinterpret_cast<const float4*>(&feb[c0]);
+        const float fy[MT_RN] = {fy4.x, fy4.y, fy4.z, fy4.w};
+        const int4 oy4 = *reinterpret_cast<const int4*>(&oidb[c0]);
+        const int oy[MT_RN] = {oy4.x, oy4.y, oy4.z, oy4.w};
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) {
+          if ((int)near[m] >= 0) continue;
+#pragma unroll
+          for (int n = 0; n < MT_RN; ++n) {
+            const u64 kr = skey(d2[m][n], oy[n]);
+            rnh[m] = kr < rnh[m] ? kr : rnh[m];
+            rhd[m] = (fy[n] < fx[m] && kr < rhd[m]) ? kr : rhd[m];
+          }
+          t_row[m] = filter_t(rnh[m], rhd[m]);
+        }
+      }
+    }
+
+    // rows: fold across the MT_TC threads of each row; an atomic only
+    // where the row still improves the buffer
+#pragma unroll
+    for (int m = 0; m < MT_RM; ++m) {
+      const u64 nh = warp_min8(rnh[m], mask);
+      const u64 hd = warp_min8(rhd[m], mask);
+      if (tc == 0 && ok[m]) {
+        if (nh < shift_key(keys[slot[m]]))
+          atomicMin(&keys[slot[m]], nh + ONE_HI);
+        if (hd < shift_key(keys_hd[slot[m]]))
+          atomicMin(&keys_hd[slot[m]], hd + ONE_HI);
+      }
+    }
+  }
 }
 }  // namespace ck
 

@@ -44,13 +44,6 @@ namespace {
 
 constexpr int IMAX = 0x7fffffff;
 
-__device__ __forceinline__ int warp_min8(int v, unsigned mask) {
-#pragma unroll
-  for (int off = ck::MT_TC / 2; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(mask, v, off));
-  return v;
-}
-
 template <int DT>
 __global__ void __launch_bounds__(ck::MT_MAX_TR * ck::MT_TC)
 label_min_bidir_kernel(const float* __restrict__ ct, int64_t n_pad, int d,

@@ -17,91 +17,64 @@
 // the exact lexicographic minimum in any CTA order, and the band pass and
 // phase 2 accumulate into one buffer in any frame order (the TPU path's
 // lexicographic merge and unpermute have no counterpart here). A row
-// writes at its original id; rows with id INT32_MAX (pads) never write,
-// and KEY_NONE is above every finite key, so no index is ever latched at
-// infinite distance.
+// reads and writes at its original id; rows with id INT32_MAX (pads)
+// neither read nor write, and KEY_NONE is above every finite key, so no
+// index is ever latched at infinite distance.
 //
-// What bounds it on the H100: per pair, D fp32 subtract + fma and two
-// compare/select minima on 64-bit keys; every pair is evaluated once per
-// orientation. The TPU carried a row block's minima across the sorted
-// grid in VMEM; here each thread holds its row's two minima in registers
-// for the whole tile and issues at most one atomicMin per side, and the
-// column free energies and ids are staged in shared memory beside the
-// coordinates.
+// What bounds it on the H100: the FP32 pipe, 3 * D flops per pair of a
+// listed tile (D subtractions, D fmas); every pair is evaluated once per
+// orientation. Beside them each pair would feed two (d2, id) minima, a
+// 64-bit compare and select each on the integer pipe at half the FP32
+// rate, which held the one-thread-per-row version at 0.17 of the FP32
+// bound. The design is nn_tiles.cu's, driven by the tile list: one CTA per
+// entry runs ck::nn_cell (common.cuh) keyed by original id --
+//  - register micro-tiles: a thread holds MT_RM rows for the pass and
+//    evaluates MT_RM x MT_RN pairs per step, columns read as one float4
+//    per dimension;
+//  - the exact filter on the FP32 pipe (sign of d2 - nextafter(d2 of the
+//    larger held key)), with the exact shifted-key updates only for the
+//    rows it flags;
+//  - row keys read from the buffer at each pass start. Phase 2 of the
+//    engine's NN search runs after the band pass, so its rows start from
+//    near-final keys and the filter drops nearly every pair; a held key is
+//    never below the final minimum, so this is exact in any order;
+//  - one atomicMin per row and side at the pass's end, only where the
+//    folded key beats the buffer;
+//  - 512-column chunks of coordinates, fe and ids double-buffered by
+//    16-byte cp.async, columns at or past n_valid staged as NaN.
+// The wrapper (ops/kernels.py) runs the list in waves by distance from
+// each row block's diagonal column block (kernels.wave_order), so that a
+// row block's later tiles find the keys its diagonal tiles wrote; the
+// results do not depend on the order.
+// The distance stays the fma chain from zero in ascending dimension order,
+// bit-equal to the plain version and to the Pallas kernel.
 
 #include "common.cuh"
 
 namespace {
 
-constexpr unsigned long long KEY_NONE =
-    (0x7F800000ull << 32) | 0x7FFFFFFFull;
-constexpr int IMAX = 0x7FFFFFFF;
-
-__device__ __forceinline__ unsigned long long make_key(float d2, int oid) {
-  return ((unsigned long long)__float_as_uint(d2) << 32) | (unsigned)oid;
-}
-
 template <int DT>
-__global__ void nn_sparse_kernel(const float* __restrict__ rows_t,
-                                 int64_t r_pad,
-                                 const float* __restrict__ fe_rows,
-                                 const int* __restrict__ oid_rows,
-                                 const float* __restrict__ cols_t,
-                                 int64_t n_pad, int d,
-                                 const float* __restrict__ fe_cols,
-                                 const int* __restrict__ oid_cols,
-                                 int n_valid, const int* __restrict__ ti,
-                                 const int* __restrict__ tj, int row_block,
-                                 int col_block,
-                                 unsigned long long* __restrict__ keys) {
-  constexpr int CH = ck::Chunk<DT>::value;
-  extern __shared__ float smem_f32[];
-  float* s_fe = smem_f32;                             // CH
-  int* s_oid = reinterpret_cast<int*>(s_fe + CH);     // CH
-  float* ys = reinterpret_cast<float*>(s_oid + CH);   // d * CH
-
+__global__ void __launch_bounds__(ck::MT_MAX_TR * ck::MT_TC,
+                                  DT >= 1 && DT <= 8 ? 3 : 2)
+nn_sparse_kernel(const float* __restrict__ rows_t, int64_t r_pad,
+                 const float* __restrict__ fe_rows,
+                 const int* __restrict__ oid_rows,
+                 const float* __restrict__ cols_t, int64_t n_pad, int d,
+                 const float* __restrict__ fe_cols,
+                 const int* __restrict__ oid_cols, int n_valid,
+                 const int* __restrict__ ti, const int* __restrict__ tj,
+                 int row_block, int col_block, ck::u64* __restrict__ keys) {
+  extern __shared__ __align__(16) float smem_f32[];
   const int k = blockIdx.x;
   const int j = tj[k];
-  if (j < 0) return;
-
-  const int tid = threadIdx.x;
-  const int64_t row0 = (int64_t)ti[k] * row_block;
-  const int64_t row = row0 + tid;
-  const bool row_on = tid < row_block;
+  if (j < 0) return;  // no-op pad
   const int64_t colbase = (int64_t)j * col_block;
-
-  ck::RowCoords<DT> x;
-  x.load(rows_t, r_pad, row_on ? row : row0, d);
-  const float fe_x = row_on ? fe_rows[row] : __int_as_float(0x7f800000);
-  const int oid_x = row_on ? oid_rows[row] : IMAX;
-  unsigned long long my_nh = KEY_NONE, my_hd = KEY_NONE;
-
-  for (int off = 0; off < col_block; off += CH) {
-    const int64_t col0 = colbase + off;
-    const int ch = min(CH, col_block - off);
-    if (col0 >= n_valid) break;
-    // columns at or past n_valid are pads: never candidates
-    const int lim = min(ch, (int)(n_valid - col0));
-    __syncthreads();
-    ck::stage_cols(ys, cols_t, n_pad, d, col0, ch);
-    for (int c = tid; c < lim; c += blockDim.x) {
-      s_fe[c] = fe_cols[col0 + c];
-      s_oid[c] = oid_cols[col0 + c];
-    }
-    __syncthreads();
-    for (int c = 0; c < lim; ++c) {
-      const float d2 = x.dist2(ys, ch, c, d);
-      if (d2 > 0.0f && d2 < __int_as_float(0x7f800000)) {
-        const unsigned long long kr = make_key(d2, s_oid[c]);
-        my_nh = kr < my_nh ? kr : my_nh;
-        if (s_fe[c] < fe_x) my_hd = kr < my_hd ? kr : my_hd;
-      }
-    }
-  }
-  if (oid_x != IMAX) {
-    if (my_nh != KEY_NONE) atomicMin(&keys[oid_x], my_nh);
-    if (my_hd != KEY_NONE) atomicMin(&keys[n_pad + oid_x], my_hd);
-  }
+  if (colbase >= n_valid) return;  // no column below n_valid
+  // keys by original id: the (2, N_pad) buffer
+  ck::nn_cell<DT, true>(smem_f32, rows_t, r_pad, fe_rows, oid_rows, cols_t,
+                        n_pad, d, fe_cols, oid_cols, n_valid,
+                        (int64_t)ti[k] * row_block, colbase, row_block,
+                        col_block, keys, n_pad);
 }
 
 }  // namespace
@@ -113,14 +86,15 @@ extern "C" int ck_nn_sparse(const float* rows_t, long long r_pad,
                             int n_valid, const int* ti, const int* tj,
                             long long n_tiles, int row_block, int col_block,
                             unsigned long long* keys, void* stream) {
-  if (row_block < 1 || row_block > 1024) return (int)cudaErrorInvalidValue;
+  if (row_block < 1 || row_block > 1024 || col_block < 1 ||
+      n_tiles > 0x7FFFFFFFll)
+    return (int)cudaErrorInvalidValue;
   if (n_tiles == 0) return (int)cudaGetLastError();
-  const int threads = ck::cta_threads(row_block);
+  const int threads = ck::mt_thread_rows(row_block) * ck::MT_TC;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   CK_DISPATCH_D(d, DT, {
-    constexpr int CH = ck::Chunk<DT>::value;
-    const size_t smem = (size_t)CH * (sizeof(float) + sizeof(int)) +
-                        ck::col_smem_bytes(DT, d);
+    constexpr int CH = ck::MtChunk<DT>::value;
+    const size_t smem = ck::nn_cell_smem_bytes(CH, d);
     if (smem > (48u << 10))
       cudaFuncSetAttribute(nn_sparse_kernel<DT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,

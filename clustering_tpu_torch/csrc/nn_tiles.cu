@@ -42,9 +42,10 @@
 // (d2, id) minima, a 64-bit compare and select each on the integer pipe
 // at half the FP32 rate, which held the one-thread-per-row version near
 // 0.18 of the FP32 bound. The design is nn_bidir.cu's row side:
-//  - register micro-tiles (common.cuh): a thread holds MT_RM rows for the
-//    pass and evaluates MT_RM x MT_RN pairs per step, 16 independent fma
-//    chains, columns read as one float4 per dimension;
+//  - register micro-tiles (common.cuh, ck::nn_cell, shared with
+//    nn_sparse.cu): a thread holds MT_RM rows for the pass and evaluates
+//    MT_RM x MT_RN pairs per step, 16 independent fma chains, columns read
+//    as one float4 per dimension;
 //  - a filter on the FP32 pipe, exact: each row carries a threshold
 //    T = nextafter(d2 of the larger of its two held keys); a pair can
 //    lower a key only if d2 - T is negative, so the step ORs the sign
@@ -72,27 +73,6 @@
 
 namespace {
 
-using ck::u64;
-
-// Start the copy of chunk columns [col0, col0 + ch) into buffer `buf`:
-// coordinates, fe and original ids (the ids bit for bit through the float
-// stager; a NaN-staged column's id is never read as a candidate's).
-template <int CH>
-__device__ __forceinline__ void stage_chunk(
-    float* ys, float* s_fe, int* s_oid, int buf,
-    const float* __restrict__ cols_t, int64_t n_pad, int d,
-    const float* __restrict__ fe_cols, const int* __restrict__ orig_ids,
-    int64_t col0, int ch, int n_valid) {
-  ck::mt_stage_cols16<CH>(ys + buf * d * CH, cols_t, n_pad, d, col0, ch,
-                          n_valid);
-  ck::mt_stage_cols16<CH>(s_fe + buf * CH, fe_cols, n_pad, 1, col0, ch,
-                          n_valid);
-  ck::mt_stage_cols16<CH>(reinterpret_cast<float*>(s_oid + buf * CH),
-                          reinterpret_cast<const float*>(orig_ids), n_pad, 1,
-                          col0, ch, n_valid);
-  ck::cp_async_commit();
-}
-
 template <int DT>
 __global__ void __launch_bounds__(ck::MT_MAX_TR * ck::MT_TC,
                                   DT >= 1 && DT <= 8 ? 3 : 2)
@@ -103,13 +83,8 @@ nn_tiles_kernel(const float* __restrict__ rows_t, int64_t r_pad,
                 const int* __restrict__ orig_ids, int n_valid,
                 const int* __restrict__ skip_words, int words_per_row,
                 int n_col_blocks, int row_block, int col_block,
-                u64* __restrict__ keys) {
-  using namespace ck;
-  constexpr int CH = MtChunk<DT>::value;
+                ck::u64* __restrict__ keys) {
   extern __shared__ __align__(16) float smem_f32[];
-  float* s_fe = smem_f32;                                // 2 x CH
-  int* s_oid = reinterpret_cast<int*>(s_fe + 2 * CH);    // 2 x CH
-  float* ys = reinterpret_cast<float*>(s_oid + 2 * CH);  // 2 x d * CH
 
   // cell k of row block i in the diagonal-first order (above)
   const int64_t nrb = gridDim.x / n_col_blocks;
@@ -126,102 +101,11 @@ nn_tiles_kernel(const float* __restrict__ rows_t, int64_t r_pad,
   if ((word >> (j & 31)) & 1u) return;  // pruned tile
   const int64_t colbase = (int64_t)j * col_block;
   if (colbase >= n_valid) return;  // no column below n_valid
-  const int64_t row0 = i * row_block;
-  u64* keys_hd = keys + r_pad;
-
-  const int tid = threadIdx.x;
-  const int tc = tid % MT_TC;
-  const int tr = tid / MT_TC;
-  const int n_tr = blockDim.x / MT_TC;
-  const int rows_per_pass = n_tr * MT_RM;
-  const unsigned mask = mt_warp_mask();
-  const int n_chunks =
-      (int)((min((int64_t)col_block, n_valid - colbase) + CH - 1) / CH);
-
-  for (int p0 = 0; p0 < row_block; p0 += rows_per_pass) {
-    int64_t row[MT_RM];
-    bool ok[MT_RM];
-    float fx[MT_RM];
-    u64 rnh[MT_RM], rhd[MT_RM];
-    float t_row[MT_RM];
-#pragma unroll
-    for (int m = 0; m < MT_RM; ++m) {
-      const int r = p0 + tr + n_tr * m;
-      row[m] = row0 + r;
-      ok[m] = r < row_block;
-      fx[m] = ok[m] ? fe_rows[row[m]] : qnan();
-      rnh[m] = ok[m] ? shift_key(keys[row[m]]) : INF0;
-      rhd[m] = ok[m] ? shift_key(keys_hd[row[m]]) : INF0;
-      t_row[m] = filter_t(rnh[m], rhd[m]);
-    }
-    MtRows<DT> x;
-    x.load(rows_t, r_pad, d, row, ok);
-
-    __syncthreads();  // the previous pass is done with both buffers
-    stage_chunk<CH>(ys, s_fe, s_oid, 0, cols_t, n_pad, d, fe_cols, orig_ids,
-                    colbase, min(CH, col_block), n_valid);
-
-    for (int q = 0; q < n_chunks; ++q) {
-      const int b = q & 1;
-      const int ch = min(CH, col_block - q * CH);
-      const float* yb = ys + b * d * CH;
-      const float* feb = s_fe + b * CH;
-      const int* oidb = s_oid + b * CH;
-      cp_async_wait_all();
-      __syncthreads();  // chunk q staged; chunk q - 1 computed
-      if (q + 1 < n_chunks)
-        stage_chunk<CH>(ys, s_fe, s_oid, b ^ 1, cols_t, n_pad, d, fe_cols,
-                        orig_ids, colbase + (int64_t)(q + 1) * CH,
-                        min(CH, col_block - (q + 1) * CH), n_valid);
-
-      for (int cbase = 0; cbase < ch; cbase += MT_STEP) {
-        const int c0 = cbase + MT_RN * tc;
-        float d2[MT_RM][MT_RN];
-        mt_dist2<DT, CH>(x, yb, d, c0, d2);
-        // filter: the sign bit is set where d2 is below a row's threshold
-        unsigned near[MT_RM];
-#pragma unroll
-        for (int m = 0; m < MT_RM; ++m) {
-          near[m] = 0;
-#pragma unroll
-          for (int n = 0; n < MT_RN; ++n)
-            near[m] |= __float_as_uint(d2[m][n] - t_row[m]);
-        }
-        if ((int)(near[0] | near[1] | near[2] | near[3]) >= 0) continue;
-
-        // exact updates, only for the rows the filter flagged
-        const float4 fy4 = *reinterpret_cast<const float4*>(&feb[c0]);
-        const float fy[MT_RN] = {fy4.x, fy4.y, fy4.z, fy4.w};
-        const int4 oy4 = *reinterpret_cast<const int4*>(&oidb[c0]);
-        const int oy[MT_RN] = {oy4.x, oy4.y, oy4.z, oy4.w};
-#pragma unroll
-        for (int m = 0; m < MT_RM; ++m) {
-          if ((int)near[m] >= 0) continue;
-#pragma unroll
-          for (int n = 0; n < MT_RN; ++n) {
-            const u64 kr = skey(d2[m][n], oy[n]);
-            rnh[m] = kr < rnh[m] ? kr : rnh[m];
-            rhd[m] = (fy[n] < fx[m] && kr < rhd[m]) ? kr : rhd[m];
-          }
-          t_row[m] = filter_t(rnh[m], rhd[m]);
-        }
-      }
-    }
-
-    // rows: fold across the MT_TC threads of each row; an atomic only
-    // where the row still improves the buffer
-#pragma unroll
-    for (int m = 0; m < MT_RM; ++m) {
-      const u64 nh = warp_min8(rnh[m], mask);
-      const u64 hd = warp_min8(rhd[m], mask);
-      if (tc == 0 && ok[m]) {
-        if (nh < shift_key(keys[row[m]]))
-          atomicMin(&keys[row[m]], nh + ONE_HI);
-        if (hd < shift_key(keys_hd[row[m]]))
-          atomicMin(&keys_hd[row[m]], hd + ONE_HI);
-      }
-    }
-  }
+  // keys in row position: a (2, R_pad) buffer
+  ck::nn_cell<DT, false>(smem_f32, rows_t, r_pad, fe_rows, nullptr, cols_t,
+                         n_pad, d, fe_cols, orig_ids, n_valid,
+                         i * row_block, colbase, row_block, col_block, keys,
+                         r_pad);
 }
 
 }  // namespace
@@ -245,8 +129,7 @@ extern "C" int ck_nn_tiles(const float* rows_t, long long r_pad,
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   CK_DISPATCH_D(d, DT, {
     constexpr int CH = ck::MtChunk<DT>::value;
-    const size_t smem =
-        (size_t)2 * CH * (sizeof(float) + sizeof(int) + d * sizeof(float));
+    const size_t smem = ck::nn_cell_smem_bytes(CH, d);
     if (smem > (48u << 10))
       cudaFuncSetAttribute(nn_tiles_kernel<DT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -18,9 +18,11 @@ on the CPU; for CUDA tensors it launches the hand-written kernel from
 plain version has the wrapper's signature and runs on any device, so the
 card can hold each kernel against it.
 
-Tile lists are flat row-major int32 (ti, tj) pairs over the
-(row_block x col_block) grid of (D, N_pad) float32 coordinate matrices
-whose pads sit at 3e38.
+Tile lists are flat int32 (ti, tj) pairs over the (row_block x
+col_block) grid of (D, N_pad) float32 coordinate matrices whose pads sit
+at 3e38; the planners emit them row-major, and no result depends on the
+order (the row-side NN and label-min wrappers reorder theirs with
+:func:`wave_order`).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper (plain calls do
 not count); :func:`reset_launches` sets every count to 0.
@@ -112,6 +114,28 @@ def _run(fn_name, count_name, *args):
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def wave_order(ti, tj, row_block, col_block, n_row_blocks, n_col_blocks,
+               row_block_offset=0):
+    """Permutation (int64) that runs a tile list in waves by distance from
+    each row block's diagonal column block jd (the column block that holds
+    the row block's first global frame, at most the last one): tiles with
+    tj = jd first, then jd + 1, jd - 1, jd + 2, ..., each wave in row block
+    order; tj < 0 entries last. One stable argsort of (wave rank, ti) on
+    the list's device, with no host sync.
+
+    The row-side kernels read their rows' bounds from their output buffer
+    at each pass start, so a tile that runs after its row block's diagonal
+    tiles starts from near-final bounds; their results do not depend on the
+    order."""
+    ti, tj = ti.long(), tj.long()
+    jd = ((ti + int(row_block_offset)) * row_block
+          // col_block).clamp_max(n_col_blocks - 1)
+    delta = tj - jd
+    rank = torch.where(delta > 0, 2 * delta - 1, -2 * delta)
+    rank = torch.where(tj < 0, 2 * n_col_blocks + 1, rank)
+    return torch.argsort(rank * n_row_blocks + ti, stable=True)
 
 
 def _grid(rows_t, cols_t, row_block, col_block):
@@ -353,7 +377,9 @@ def nn_sparse(rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid, n_valid, ti,
     ``oid_rows[row]`` (below N_pad); rows whose ``oid_rows`` is INT32_MAX
     (pads) never write. ``fe_rows``/``oid_rows`` (R_pad,) belong to
     ``rows_t``, ``fe_cols``/``oid`` (N_pad,) to ``cols_t``. Entries with
-    tj < 0 are no-ops and repeats are harmless. Returns ``keys``."""
+    tj < 0 are no-ops and repeats are harmless; the kernel runs the list in
+    :func:`wave_order`, and ``keys`` may already hold keys (a first pass's),
+    which its rows then start from. Returns ``keys``."""
     if rows_t.device.type == "cpu":
         return nn_sparse_plain(rows_t, fe_rows, oid_rows, cols_t, fe_cols,
                                oid, n_valid, ti, tj, keys, row_block,
@@ -373,6 +399,9 @@ def nn_sparse(rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid, n_valid, ti,
     _grid(rows_t, cols_t, row_block, col_block)
     if n_tiles == 0:
         return keys
+    perm = wave_order(ti, tj, row_block, col_block, r_pad // row_block,
+                      n_pad // col_block)
+    ti, tj = ti[perm], tj[perm]
     with torch.cuda.device(rows_t.device):
         _run("ck_nn_sparse", "nn_sparse", _ptr(rows_t), r_pad, _ptr(fe_rows),
              _ptr(oid_rows), _ptr(cols_t), n_pad, n_dim, _ptr(fe_cols),
@@ -463,7 +492,8 @@ def label_min_sparse(rows_t, cols_t, labels, n_below, max_dist2, ti, tj,
     its pairs with d2 < max_dist2 and both global positions below n_below
     proposes ``labels[col]`` to the row. Returns the (R_pad,) int32
     proposals, INT32_MAX where a row has none; ``labels`` (N_pad,) is left
-    unchanged. Entries with tj < 0 are no-ops and repeats are harmless."""
+    unchanged. Entries with tj < 0 are no-ops and repeats are harmless;
+    the kernel runs the list in :func:`wave_order`."""
     if rows_t.device.type == "cpu":
         return label_min_sparse_plain(rows_t, cols_t, labels, n_below,
                                       max_dist2, ti, tj, row_block_offset,
@@ -482,6 +512,9 @@ def label_min_sparse(rows_t, cols_t, labels, n_below, max_dist2, ti, tj,
     out = torch.full((r_pad,), IMAX, dtype=torch.int32, device=rows_t.device)
     if n_tiles == 0:
         return out
+    perm = wave_order(ti, tj, row_block, col_block, r_pad // row_block,
+                      n_pad // col_block, row_block_offset)
+    ti, tj = ti[perm], tj[perm]
     with torch.cuda.device(rows_t.device):
         _run("ck_label_min_sparse", "label_min_sparse", _ptr(rows_t), r_pad,
              _ptr(cols_t), n_pad, n_dim, _ptr(labels), int(n_below),

@@ -45,11 +45,12 @@ import chip_smoke as cs
 ORDER = ("old", "new", "new", "old")
 
 
-def build_old(csrc, names):
-    """nvcc the old version's named kernels into one library; returns it."""
+def build_old(csrc, names, flags=()):
+    """nvcc the old version's named kernels (with the extra nvcc ``flags``)
+    into one library; returns it."""
     from clustering_tpu_torch.ops import _build
     srcs = [os.path.join(csrc, f"{k}.cu") for k in names]
-    h = hashlib.sha256()
+    h = hashlib.sha256(" ".join(flags).encode())
     for p in srcs + [os.path.join(csrc, "common.cuh")]:
         with open(p, "rb") as fh:
             h.update(fh.read())
@@ -59,7 +60,8 @@ def build_old(csrc, names):
     if not os.path.exists(lib):
         subprocess.run([_build._nvcc()] + _build.ARCH_FLAGS
                        + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
-                          "-shared", "-I", csrc, "-o", lib] + srcs,
+                          "-shared", "-I", csrc, "-o", lib] + list(flags)
+                       + srcs,
                        check=True)
     old = ctypes.CDLL(lib)
     for name in names:

@@ -534,3 +534,142 @@ def test_cuda_pops_sparse_edge_radii_match_plain(d, which):
             put(rmask.astype(np.int32)), 32, 64)
     got = kernels.pops_sparse(*args)
     assert torch.equal(got, kernels.pops_sparse_plain(*args))
+
+
+def _row_side_case(d, rb, cb, seed):
+    """Cross-form inputs of the redesigned row-side kernels: columns with
+    duplicates (d2 = 0), quantised fe (ties), ids and n_valid inside a
+    column block; seven row blocks of their own (R_pad != N_pad), jittered
+    copies of columns with exact copies first, the last block pads; rows
+    with id INT32_MAX (the pad block and a few others), fe ties and one row
+    below every column; a row-major list with repeats and tj = -1 entries.
+    Returns a dict of numpy arrays and ints."""
+    rng = np.random.default_rng(seed)
+    n = 3 * cb + cb // 2 + 5
+    n_pad = -(-n // cb) * cb
+    c = rng.normal(0.0, 0.3, size=(n, d)).astype(np.float32)
+    c[:8] = c[0]
+    cols_t = np.full((d, n_pad), np.float32(3e38), np.float32)
+    cols_t[:, :n] = c.T
+    r_real = 6 * rb
+    rows_t = np.full((d, 7 * rb), np.float32(3e38), np.float32)
+    rows_t[:, :r_real] = (c[rng.integers(0, n, size=r_real)]
+                          + rng.normal(0.0, 0.02, size=(r_real, d))).T
+    rows_t[:, :3] = c[[0, 1, n - 1]].T
+    fe_cols = np.full(n_pad, np.inf, np.float32)
+    fe_cols[:n] = rng.integers(0, 5, size=n) / np.float32(4.0)
+    oid = np.full(n_pad, IMAX, np.int32)
+    oid[:n] = rng.permutation(n)
+    fe_rows = np.full(7 * rb, np.inf, np.float32)
+    fe_rows[:r_real] = rng.integers(0, 5, size=r_real) / np.float32(4.0)
+    fe_rows[4] = -1.0  # no lower-fe neighbour
+    oid_rows = np.full(7 * rb, IMAX, np.int32)
+    oid_rows[:r_real] = rng.integers(0, n_pad, size=r_real)
+    oid_rows[[5, rb + 1, 3 * rb + 2]] = IMAX
+    ti, tj = np.nonzero(rng.random((7, n_pad // cb)) < 0.7)
+    ti = np.append(ti, [ti[0], 0, 6]).astype(np.int32)
+    tj = np.append(tj, [tj[0], -1, -1]).astype(np.int32)
+    assert rows_t.shape[1] != n_pad
+    return dict(n=n, rows_t=rows_t, cols_t=cols_t, fe_rows=fe_rows,
+                oid_rows=oid_rows, fe_cols=fe_cols, oid=oid, ti=ti, tj=tj)
+
+
+def _shuffled(ti, tj, seed):
+    perm = torch.as_tensor(np.random.default_rng(seed).permutation(len(ti)),
+                           device=ti.device)
+    return ti[perm], tj[perm]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64), (16, 24)])
+def test_cuda_redesigned_nn_sparse_matches_plain(d, rb, cb):
+    """The micro-tiled nn_sparse against its plain version on cross-form
+    inputs (_row_side_case): a first call into a fresh buffer, then a
+    second call, on the list shuffled, into the buffer that holds the
+    first call's keys (the seeded filter); keys exact (ids, and distances
+    bit for bit) after each."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    case = _row_side_case(d, rb, cb, seed=900 + 3 * d + rb)
+    t = {k: torch.as_tensor(v, device=dev) if isinstance(v, np.ndarray)
+         else v for k, v in case.items()}
+    n_pad = case["cols_t"].shape[1]
+    first = (t["ti"][::3].contiguous(), t["tj"][::3].contiguous())
+    second = _shuffled(t["ti"], t["tj"], seed=d + rb)
+    kernels.reset_launches()
+    keys = {}
+    for name, fn in (("kernel", kernels.nn_sparse),
+                     ("plain", kernels.nn_sparse_plain)):
+        k = kernels.nn_keys_init(n_pad, dev)
+        for ti, tj in (first, second):
+            fn(t["rows_t"], t["fe_rows"], t["oid_rows"], t["cols_t"],
+               t["fe_cols"], t["oid"], t["n"], ti, tj, k, rb, cb)
+            keys.setdefault(name, []).append(k.clone())
+    for got, want in zip(keys["kernel"], keys["plain"]):
+        assert torch.equal(got, want)
+    assert not torch.equal(keys["plain"][0], keys["plain"][1])
+    d2, _ = kernels.unpack_keys(keys["plain"][1])
+    assert bool(torch.isfinite(d2).any()) and bool((d2 != 0).all())
+    assert kernels.LAUNCHES["nn_sparse"] == 2
+
+
+def _components(ct, n_below, md2, cb):
+    """Fixpoint labels of the graph d2 < md2 over the first n_below frames
+    of ct (each frame its component's least position, arange above),
+    through the plain row-side sweep with pointer jumping."""
+    n_pad = ct.shape[1]
+    ncb = n_pad // cb
+    ti = torch.arange(ncb, dtype=torch.int32, device=ct.device)
+    ti, tj = ti.repeat_interleave(ncb), ti.repeat(ncb)
+    dirty = torch.ones(ncb, dtype=torch.int32, device=ct.device)
+    labels = torch.arange(n_pad, dtype=torch.int32, device=ct.device)
+    while True:
+        prop = kernels.label_min_sparse_plain(ct, ct, labels, n_below, md2,
+                                              ti, tj, 0, dirty, cb, cb)
+        new = torch.minimum(labels, prop)
+        while not torch.equal(new[new.long()], new):
+            new = new[new.long()]
+        if torch.equal(new, labels):
+            return labels
+        labels = new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 4, 8, 16, 17])
+@pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256), (64, 64), (16, 24)])
+def test_cuda_redesigned_label_min_sparse_matches_plain(d, rb, cb):
+    """The micro-tiled label_min_sparse against its plain version on
+    cross-form inputs (_row_side_case) with a row-block offset, n_below
+    inside a row block and a column block, and a partial dirty set: on
+    arange-like labels and on converged labels (a finished fixpoint, where
+    the step skip fires), each list also shuffled; proposals exact."""
+    _need_cuda()
+    dev = torch.device("cuda")
+    case = _row_side_case(d, rb, cb, seed=700 + 3 * d + rb)
+    rows_d, ct_d, ti, tj = (torch.as_tensor(case[k], device=dev)
+                            for k in ("rows_t", "cols_t", "ti", "tj"))
+    n, n_pad = case["n"], case["cols_t"].shape[1]
+    off = 2
+    n_below = min(n - 3, (off + 3) * rb + rb // 2 + 1)
+    md2 = np.float32(0.02 * d)
+    rng = np.random.default_rng(d + rb)
+    dirty = torch.as_tensor((rng.random(n_pad // cb) < 0.7).astype(np.int32),
+                            device=dev)
+    dirty[0] = 1
+    mixed = torch.as_tensor(np.minimum(np.arange(n_pad), rng.integers(
+        0, n_pad, n_pad)).astype(np.int32), device=dev)
+    converged = _components(ct_d, n_below, md2, cb)
+    assert bool((converged[:n_below] != torch.arange(n_below,
+                                                     device=dev)).any())
+    kernels.reset_launches()
+    for labels in (mixed, converged):
+        want = kernels.label_min_sparse_plain(rows_d, ct_d, labels, n_below,
+                                              md2, ti, tj, off, dirty, rb,
+                                              cb)
+        for lti, ltj in ((ti, tj), _shuffled(ti, tj, seed=d)):
+            got = kernels.label_min_sparse(rows_d, ct_d, labels, n_below,
+                                           md2, lti, ltj, off, dirty, rb, cb)
+            assert torch.equal(got, want)
+        assert bool((want < IMAX).any())
+    assert kernels.LAUNCHES["label_min_sparse"] == 4

@@ -214,6 +214,162 @@ def test_label_min_sparse_matches_pallas(d):
     assert (got[:n_below - off * RB] < IMAX).any()
 
 
+def _permuted(ti, tj, order, n_row_blocks, n_col_blocks, offset=0):
+    """The list (ti, tj) in wave order or in a random order (numpy)."""
+    if order == "waves":
+        perm = kernels.wave_order(torch.from_numpy(ti), torch.from_numpy(tj),
+                                  RB, CB, n_row_blocks, n_col_blocks,
+                                  offset).numpy()
+    else:
+        perm = np.random.default_rng(len(ti)).permutation(len(ti))
+    assert not np.array_equal(perm, np.arange(len(ti)))
+    return ti[perm], tj[perm]
+
+
+def _nn_cross_inputs(d, seed):
+    """Cross-form NN inputs: rows of their own with quantised fe (one row
+    below every column), pad rows with id INT32_MAX, columns with ids."""
+    rows_t, cols_t, n = _cross(d, seed=seed)
+    r_pad, n_pad = rows_t.shape[1], cols_t.shape[1]
+    n_rows = 52
+    rng = np.random.default_rng(seed + 1)
+    fe_cols = np.full(n_pad, np.inf, np.float32)
+    fe_cols[:n] = rng.integers(0, 6, size=n) / np.float32(4.0)
+    fe_rows = np.full(r_pad, np.inf, np.float32)
+    fe_rows[:n_rows] = rng.integers(0, 6, size=n_rows) / np.float32(4.0)
+    fe_rows[7] = -1.0  # below every column: no lower-fe neighbour
+    oid = np.full(n_pad, IMAX, np.int32)
+    oid[:n] = rng.permutation(n)
+    oid_rows = np.full(r_pad, IMAX, np.int32)
+    oid_rows[:n_rows] = rng.permutation(n)[:n_rows]
+    return rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid, n
+
+
+def _nn_port(inputs, ti, tj, keys=None):
+    rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid, n = inputs
+    if keys is None:
+        keys = kernels.nn_keys_init(cols_t.shape[1], "cpu")
+    return kernels.nn_sparse(*map(torch.from_numpy, (rows_t, fe_rows,
+                                                     oid_rows, cols_t,
+                                                     fe_cols, oid)),
+                             n, torch.from_numpy(ti), torch.from_numpy(tj),
+                             keys, RB, CB)
+
+
+def _nn_pallas_keys(inputs, ti, tj):
+    """nn_tiles_sparse_cross on (ti, tj) as (2, R_pad) packed keys in row
+    position: (float_bits(d2) << 32) | id, (inf, IMAX) for none."""
+    rows_t, fe_rows, _, cols_t, fe_cols, oid, n = inputs
+    d2, j = pk.nn_tiles_sparse_cross(
+        rows_t, fe_rows.reshape(1, -1), cols_t, fe_cols.reshape(1, -1),
+        oid.reshape(1, -1), np.int32(n), ti, tj, row_block=RB, col_block=CB)
+    d2 = np.asarray(d2, np.float32).view(np.uint32).astype(np.int64)
+    return (d2 << 32) | np.asarray(j).astype(np.int64)
+
+
+@pytest.mark.parametrize("order", ["waves", "random"])
+@pytest.mark.parametrize("d", [1, 4])
+def test_sparse_kernels_on_permuted_lists_match_pallas(d, order):
+    """nn_sparse and label_min_sparse on their tile list permuted (the
+    wave order the CUDA branch runs, or a random one) equal the Pallas
+    kernels on the row-major list: the results cannot depend on the order."""
+    inputs = _nn_cross_inputs(d, seed=70 + d)
+    rows_t, _, oid_rows, cols_t, *_ = inputs
+    nrb, ncb = rows_t.shape[1] // RB, cols_t.shape[1] // CB
+    ti, tj = _sorted_tiles(nrb, ncb, seed=80 + d, frac=0.6)
+    want = _nn_pallas_keys(inputs, ti, tj)
+    # the port's list also holds a repeat and a tj = -1 no-op
+    pti, ptj = _permuted(np.append(ti, [ti[-1], 2]).astype(np.int32),
+                         np.append(tj, [tj[-1], -1]).astype(np.int32),
+                         order, nrb, ncb)
+    got = _nn_port(inputs, pti, ptj).numpy()
+    slots = oid_rows[oid_rows != IMAX]
+    np.testing.assert_array_equal(got[:, slots], want[:, oid_rows != IMAX])
+
+    c = np.random.default_rng(d).normal(0.0, 0.3, size=(230, d))
+    cols_t = _padded_t(c.astype(np.float32), CB)
+    off, n_rb = 2, 11
+    rows_t = np.ascontiguousarray(cols_t[:, off * RB:(off + n_rb) * RB])
+    labels = np.arange(cols_t.shape[1], dtype=np.int32)
+    labels[:230] = np.minimum(labels[:230],
+                              np.random.default_rng(d).integers(0, 230, 230))
+    ncb = cols_t.shape[1] // CB
+    dirty = (np.arange(ncb) % 3 != 1).astype(np.int32)
+    ti, tj = _sorted_tiles(n_rb, ncb, seed=90 + d, frac=0.8)
+    n_below, md2 = 101, np.float32(0.15)
+    want = pk.label_min_sparse_cross(
+        rows_t, cols_t, labels.reshape(1, -1), np.int32(n_below), md2, ti,
+        tj, np.int32(off), dirty=dirty, row_block=RB, col_block=CB)
+    pti, ptj = _permuted(ti, tj, order, n_rb, ncb, off)
+    got = kernels.label_min_sparse(
+        torch.from_numpy(rows_t), torch.from_numpy(cols_t),
+        torch.from_numpy(labels), n_below, md2, torch.from_numpy(pti),
+        torch.from_numpy(ptj), off, torch.from_numpy(dirty), RB, CB)
+    np.testing.assert_array_equal(np.asarray(want)[0], got.numpy())
+    assert (got.numpy() < IMAX).any()
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_nn_sparse_into_seeded_buffer_matches_two_pallas_passes(d):
+    """A second nn_sparse call into a buffer that holds the first call's
+    keys (the engine's band pass, then phase 2) ends at the lexicographic
+    minimum of the two nn_tiles_sparse_cross outputs: starting from held
+    keys loses none."""
+    inputs = _nn_cross_inputs(d, seed=100 + d)
+    rows_t, _, oid_rows, cols_t, *_ = inputs
+    nrb, ncb = rows_t.shape[1] // RB, cols_t.shape[1] // CB
+    ti1, tj1 = _sorted_tiles(nrb, ncb, seed=110 + d, frac=0.3)
+    ti2, tj2 = _sorted_tiles(nrb, ncb, seed=120 + d, frac=0.5)
+    keys = _nn_port(inputs, ti1, tj1)
+    first = keys.clone()
+    _nn_port(inputs, *_permuted(ti2, tj2, "waves", nrb, ncb), keys=keys)
+    want = np.minimum(_nn_pallas_keys(inputs, ti1, tj1),
+                      _nn_pallas_keys(inputs, ti2, tj2))
+    real = oid_rows != IMAX
+    np.testing.assert_array_equal(keys.numpy()[:, oid_rows[real]],
+                                  want[:, real])
+    # the second pass lowered some keys and found some rows new ones
+    assert (keys != first).any()
+
+
+@pytest.mark.parametrize("rb,cb,offset", [(8, 16, 0), (16, 24, 3),
+                                          (128, 64, 1)])
+def test_wave_order_is_a_permutation_diagonal_first(rb, cb, offset):
+    """kernels.wave_order: a permutation of the list; per row block the
+    diagonal column block first, then jd + 1, jd - 1, jd + 2, ...; waves
+    in row block order; tj = -1 entries last."""
+    nrb, ncb = 9, 12
+    rng = np.random.default_rng(rb + offset)
+    ti, tj = np.nonzero(rng.random((nrb, ncb)) < 0.7)
+    ti = np.append(ti, [0, 4, 4]).astype(np.int32)
+    tj = np.append(tj, [-1, 3, -1]).astype(np.int32)  # a repeat, pads
+    shuffle = rng.permutation(len(ti))
+    ti, tj = ti[shuffle], tj[shuffle]
+    perm = kernels.wave_order(torch.from_numpy(ti), torch.from_numpy(tj),
+                              rb, cb, nrb, ncb, offset).numpy()
+    np.testing.assert_array_equal(np.sort(perm), np.arange(len(ti)))
+    oti, otj = ti[perm], tj[perm]
+    jd = np.minimum((oti + offset) * rb // cb, ncb - 1)
+    delta = otj - jd
+    rank = np.where(otj < 0, 2 * ncb + 1,
+                    np.where(delta > 0, 2 * delta - 1, -2 * delta))
+    key = rank * nrb + oti
+    assert (np.diff(key) >= 0).all()
+    n_diag = int((delta == 0).sum())
+    assert n_diag > 0 and (delta[:n_diag] == 0).all()
+    assert (otj[-2:] == -1).all() and (otj[:-2] >= 0).all()
+    for i in range(nrb):
+        seq = otj[(oti == i) & (otj >= 0)]
+        seq = seq[np.r_[True, np.diff(seq) != 0]]  # drop the repeat
+        jd_i = min((i + offset) * rb // cb, ncb - 1)
+        dist = np.abs(seq - jd_i)
+        assert (np.diff(dist) >= 0).all()
+        # at equal distance the block after the diagonal comes first
+        for a, b in zip(seq[:-1], seq[1:]):
+            if abs(a - jd_i) == abs(b - jd_i):
+                assert a > b
+
+
 # -- engines -------------------------------------------------------------------
 
 def _blobs(n, d, seed, dup=0):
