@@ -34,7 +34,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      switches on and once with them off (``POPS_BIDIR``, ``NN_BIDIR``,
      ``BIDIR``); populations, nn ids, nn distances (bit for bit) and every
      clustering must be identical, every row-side kernel launched in the
-     symmetric run and no bidirectional one;
+     symmetric run and no bidirectional one; after the bidirectional run,
+     the plan check (each device planner's tile list against the numpy
+     planners' on the same masks, identical, with both planners' times);
   7. the skip-word route at N = 2^20, D = 4, r = 0.1, as the library
      functions ``pops_tiles`` and ``nn_tiles`` are meant to be composed:
      Morton layout, populations under radius skip words, free energies,
@@ -49,7 +51,15 @@ Phases, each printing its own lines; any failure exits non-zero:
      kernel time (CUDA events, summed over the calls), its plain version
      on the same inputs (exact), launches, evaluated pairs and the bound,
      the larger of 3 D flops per pair over the FP32 peak and the bytes
-     over the HBM rate, with the card's name and power limit.
+     over the HBM rate, with the card's name and power limit;
+  9. big N, the engines as in phase 6 on the default route at N = 2^23:
+     every stage must say it planned on the device and launch its
+     bidirectional kernel; phase 5's output invariants; a sampled exact
+     check of 256 frames against all N (populations, both neighbours, and
+     the last clustering's label against every admissible neighbour's);
+     phase 6's plan check. It prints the stage walls, t_plan, t_best_sort,
+     each kernel's time (CUDA events around its calls) and the peak of
+     device memory.
 
 The line before the last holds the kernels' JSON record, from phase 8;
 the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
@@ -259,6 +269,8 @@ def phase_kernels(torch):
     rb, cb, n = eng.row_block, eng.col_block, eng.n
 
     def put(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(dev)
         return torch.as_tensor(np.ascontiguousarray(a), device=dev)
 
     # populations at the main path's radius: the upper-triangular plan,
@@ -284,16 +296,16 @@ def phase_kernels(torch):
     r2_3 = put(np.asarray([np.float32(r) * np.float32(r) for r in radii3],
                           np.float32))
     name3, ti3, tj3, rm3 = eng.pops_plan(radii3, bidir=True)
-    rm3 = rm3 & np.random.default_rng(3).integers(1, 8, size=len(rm3),
-                                                  dtype=np.int32)
+    rm3 = rm3 & put(np.random.default_rng(3).integers(1, 8, size=len(rm3),
+                                                      dtype=np.int32))
     ct3 = eng.coords_t(name3)
     args = (r2_3, n, put(ti3), put(tj3), put(rm3), rb, cb)
     hold(torch, "pops_bidir", f"3 radii, partial rmask, {len(ti3)} tiles",
          lambda: kernels.pops_bidir(ct3, *args),
          lambda: kernels.pops_bidir_plain(ct3, *args), exact("count"))
     name3, ti3, tj3, rm3 = eng.pops_plan(radii3, bidir=False)
-    rm3 = rm3 & np.random.default_rng(4).integers(1, 8, size=len(rm3),
-                                                  dtype=np.int32)
+    rm3 = rm3 & put(np.random.default_rng(4).integers(1, 8, size=len(rm3),
+                                                      dtype=np.int32))
     ct3 = eng.coords_t(name3)
     args = (ct3, ct3, r2_3, n, put(ti3), put(tj3), put(rm3), rb, cb)
     hold(torch, "pops_sparse", f"3 radii, partial rmask, {len(ti3)} tiles",
@@ -307,11 +319,10 @@ def phase_kernels(torch):
     pops = np.empty(n, np.int64)
     pops[order] = counts
     fe = free_energies(pops)
-    band, band_eff = eng.nn_band_mask(bidir=True)
     fe_l = eng._fe_layout(fe, "morton")
     oid = eng.oid("morton")
     ct_m = eng.coords_t("morton")
-    bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band_eff))
+    bti, btj = pruning.tile_list_device(eng.nn_band_mask(bidir=True)[1])
 
     def nn_run(fn, *lead):
         return fn(*lead, ct_m, fe_l, oid, n, bti, btj,
@@ -320,7 +331,7 @@ def phase_kernels(torch):
     want = hold(torch, "nn_bidir", f"{len(bti)} tiles",
                 lambda: nn_run(kernels.nn_bidir),
                 lambda: nn_run(kernels.nn_bidir_plain), keys_equal(torch, n))
-    bti, btj = (put(a.astype(np.int32)) for a in np.nonzero(band))
+    bti, btj = map(put, pruning.tile_list(eng.nn_band_mask(bidir=False)[0]))
     rows = (ct_m, fe_l, oid)
     hold(torch, "nn_sparse", f"{len(bti)} tiles",
          lambda: nn_run(kernels.nn_sparse, *rows),
@@ -503,6 +514,32 @@ def phase_slice(tmp):
           f" cuda {walls['cuda']:.3f}s, cpu {walls['cpu']:.3f}s")
 
 
+def check_outputs(where, n, pops, fe, ids, dists, clust):
+    """The density outputs' invariants: ``n`` populations >= 1, finite
+    free energies and distances, neighbour ids in range, every lower-fe
+    neighbour of lower free energy, absent ones (0, 0.0), at least one
+    state in ``clust`` (the last threshold's). ``ids`` and ``dists`` are
+    (N, 2): nearest, then nearest lower-fe neighbour."""
+    if pops.shape != (n,) or pops.min() < 1:
+        fail("populations must be >= 1 for every frame")
+    if not np.isfinite(fe).all() or not np.isfinite(dists).all():
+        fail("non-finite output")
+    if ids.min() < 0 or ids.max() >= n:
+        fail("neighbour ids out of range")
+    has_hd = dists[:, 1] > 0
+    if not (fe[ids[has_hd, 1]] < fe[has_hd]).all():
+        fail("a higher-density neighbour without lower free energy")
+    absent = ~has_hd
+    if (ids[absent, 1] != 0).any():
+        fail("absent higher-density neighbours must be (0, 0.0)")
+    n_states = int(clust.max())
+    if n_states < 1:
+        fail(f"no state at threshold {THRESHOLDS[-1]}")
+    print(f"[{where}] {n_states} states at {THRESHOLDS[-1]}; pops in"
+          f" [{pops.min()}, {pops.max()}]; {int(absent.sum())} frames"
+          " without a lower-fe neighbour")
+
+
 def phase_main(torch, tmp):
     from clustering_tpu_torch.ops import kernels
     from clustering_tpu_torch.ops.density import free_energies
@@ -529,40 +566,26 @@ def phase_main(torch, tmp):
     pops = np.loadtxt(os.path.join(d, "pop"), dtype=np.int64)
     nn = read_nn(os.path.join(d, "nn"))
     clust = np.loadtxt(os.path.join(d, "clust.2.00"), dtype=np.int64)
-    if pops.shape != (N_MAIN,) or pops.min() < 1:
-        fail("populations must be >= 1 for every frame")
     # the fe file is printed rounded; its exact fp32 values follow from
     # the integer populations
     fe = free_energies(pops)
     fe_file = np.loadtxt(os.path.join(d, "fe"), dtype=np.float64)
     if not np.allclose(fe_file, fe, rtol=1e-5, atol=1e-6):
         fail("fe file does not match the populations")
-    if not np.isfinite(fe).all() or not np.isfinite(nn).all():
-        fail("non-finite output")
-    ids = nn[:, [0, 2]].astype(np.int64)
-    if ids.min() < 0 or ids.max() >= N_MAIN:
-        fail("neighbour ids out of range")
-    has_hd = nn[:, 3] > 0
-    if not (fe[ids[has_hd, 1]] < fe[has_hd]).all():
-        fail("a higher-density neighbour without lower free energy")
-    absent = ~has_hd
-    if (ids[absent, 1] != 0).any():
-        fail("absent higher-density neighbours must be (0, 0.0)")
-    n_states = int(clust.max())
-    if n_states < 1:
-        fail("no state at threshold 2.00")
-    print(f"[main] {n_states} states at 2.00; pops in [{pops.min()},"
-          f" {pops.max()}]; {int(absent.sum())} frames without a"
-          " lower-fe neighbour")
+    check_outputs("main", N_MAIN, pops, fe, nn[:, [0, 2]].astype(np.int64),
+                  nn[:, [1, 3]], clust)
     return launches
 
 
 # -- phase 6 -------------------------------------------------------------------
 
-def run_engines(torch, coords):
+def run_engines(torch, coords, stats=None, keep=None):
     """populations -> free energies -> nearest neighbours -> screening
     series through the port's engines on the card, as the density CLI runs
-    them. Returns (pops, nn, clusterings, stage walls, stage modes)."""
+    them. Returns (pops, nn, clusterings, stage walls, stage modes); fills
+    ``stats``, if given, with each stage's ``last_stats``, and ``keep``,
+    if given, with the density engine, the screener and the linking
+    distance (``engine``, ``series``, ``md2``)."""
     from clustering_tpu_torch.ops.density import free_energies
     from clustering_tpu_torch.ops.engine import DensityEngine
     from clustering_tpu_torch.ops.neighbors import compute_sigma2
@@ -576,12 +599,17 @@ def run_engines(torch, coords):
         walls[name] = time.perf_counter() - t0
         return out
 
+    def record(name, last):
+        modes[name] = last["mode"]
+        if stats is not None:
+            stats[name] = dict(last)
+
     eng = DensityEngine(coords, device="cuda")
     pops = stage("populations", lambda: eng.populations([RADIUS])[RADIUS])
-    modes["populations"] = eng.last_stats["populations"]["mode"]
+    record("populations", eng.last_stats["populations"])
     fe = free_energies(pops)
     nn = stage("nearest neighbors", lambda: eng.nearest_neighbors(fe))
-    modes["nearest neighbors"] = eng.last_stats["nn"]["mode"]
+    record("nearest neighbors", eng.last_stats["nn"])
     md2 = np.float32(4.0 * compute_sigma2(nn[1]))
     thresholds = [np.float32(t) for t in THRESHOLDS]
     series = stage("screening setup", lambda: ThresholdSeriesScreener(
@@ -590,7 +618,9 @@ def run_engines(torch, coords):
     for k, t in enumerate(THRESHOLDS):
         prev = stage(f"screening {t}", series.step, prev, k, md2)
         clust.append(prev)
-        modes[f"screening {t}"] = series.engine.last_stats["mode"]
+        record(f"screening {t}", series.engine.last_stats)
+    if keep is not None:
+        keep.update(engine=eng, series=series, md2=md2)
     return pops, nn, clust, walls, modes
 
 
@@ -612,15 +642,39 @@ def bidir_switches(on):
          ScreeningEngine.BIDIR) = saved
 
 
+def same_results(run_a, run_b, what):
+    """Fail unless two ``run_engines`` results have identical populations,
+    nn ids, nn distances (bit for bit) and clusterings; ``what`` names the
+    two runs."""
+    pops_a, nn_a, clust_a = run_a[:3]
+    pops_b, nn_b, clust_b = run_b[:3]
+    if not np.array_equal(pops_a, pops_b):
+        fail(f"populations differ between {what}")
+    for i in (0, 2):
+        if not np.array_equal(nn_a[i], nn_b[i]):
+            fail(f"nn ids differ between {what}")
+    for i in (1, 3):
+        if not np.array_equal(np.asarray(nn_a[i], np.float32).view(np.int32),
+                              np.asarray(nn_b[i], np.float32).view(np.int32)):
+            fail(f"nn distances differ between {what}")
+    for t, a, b in zip(THRESHOLDS, clust_a, clust_b):
+        if not np.array_equal(a, b):
+            fail(f"clustering at {t} differs between {what}")
+
+
 def phase_symmetric(torch):
     from clustering_tpu_torch.ops import kernels
     coords = synthetic_fel(N_MAIN, DIM, seed=0)
     runs = {}
     for mode, on in (("bidir", True), ("symmetric", False)):
+        keep = {}
         with bidir_switches(on):
             kernels.reset_launches()
-            out = run_engines(torch, coords)
+            out = run_engines(torch, coords, keep=keep)
         runs[mode] = out + (dict(kernels.LAUNCHES),)
+        if on:
+            plan_check(torch, f"N={N_MAIN}", nn=out[1], **keep)
+        del keep
     for mode, (_, _, _, walls, modes, launches) in runs.items():
         print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
               + json.dumps(walls))
@@ -636,21 +690,10 @@ def phase_symmetric(torch):
         for name in off:
             if launches[name] != 0:
                 fail(f"kernel {name} was launched by the {mode} run")
-    pops_b, nn_b, clust_b, _, _, _ = runs["bidir"]
-    pops_s, nn_s, clust_s, _, _, launches = runs["symmetric"]
-    if not np.array_equal(pops_b, pops_s):
-        fail("populations differ between the bidir and symmetric paths")
-    for i in (0, 2):
-        if not np.array_equal(nn_b[i], nn_s[i]):
-            fail("nn ids differ between the bidir and symmetric paths")
-    for i in (1, 3):
-        if not np.array_equal(np.asarray(nn_b[i], np.float32).view(np.int32),
-                              np.asarray(nn_s[i], np.float32).view(np.int32)):
-            fail("nn distances differ between the bidir and symmetric paths")
-    for t, a, b in zip(THRESHOLDS, clust_b, clust_s):
-        if not np.array_equal(a, b):
-            fail(f"clustering at {t} differs between the bidir and"
-                 " symmetric paths")
+    same_results(runs["bidir"], runs["symmetric"],
+                 "the bidir and symmetric paths")
+    pops_b, nn_b, _, _, _, _ = runs["bidir"]
+    clust_s, launches = runs["symmetric"][2], runs["symmetric"][5]
     print(f"[symmetric] N={N_MAIN}: populations, nn ids, nn distances (bit"
           f" for bit) and {len(THRESHOLDS)} clusterings identical;"
           f" {int(clust_s[-1].max())} states at {THRESHOLDS[-1]}")
@@ -935,6 +978,238 @@ def phase_main_path_kernels(torch, calls, launches, smi):
     return records
 
 
+# -- plan check (phases 6 and 9) ----------------------------------------------
+
+def plan_check(torch, where, engine, series, md2, nn):
+    """After an engine run, each device planner of the bidirectional stages
+    against the numpy planners on the same masks: the populations list and
+    rmask, the NN band's closure, a phase-2 closure (each frame's bound:
+    the larger of its two neighbour distances in ``nn``, +inf without a
+    lower-fe neighbour) and every series step's screening list. The lists
+    must be identical; prints each planner's seconds, device then host
+    (the host side includes the download of its mask)."""
+    from clustering_tpu_torch.ops import pruning
+    from clustering_tpu_torch.ops.engine import NN_BAND_BLOCKS, NN_BAND_ORDER
+    from clustering_tpu_torch.ops.screening import screen_active
+    eng = engine
+    rb, cb = eng.row_block, eng.col_block
+    nrb, ncb = eng.n_pad // rb, eng.n_pad // cb
+    secs, tiles = {}, {}
+
+    def clock(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def compare(stage, device, host):
+        got, t_dev = clock(device)
+        want, t_host = clock(host)
+        got = None if got is None else [a.cpu().numpy() for a in got]
+        if (got is None) != (want is None) or not all(
+                np.array_equal(a, b) for a, b in zip(got or (), want or ())):
+            fail(f"{where}: the device plan of {stage} differs from the"
+                 " numpy planners'")
+        secs[stage] = [t_dev, t_host]
+        tiles[stage] = 0 if want is None else len(want[0])
+
+    r2 = np.float32(RADIUS) * np.float32(RADIUS)
+    name = eng._best_sort(r2)
+
+    def host_pops():
+        planes = pruning.threshold_planes(eng.d2b(name), [r2, r2])
+        ti, tj = pruning.tile_list(
+            planes[0] & pruning.upper_mask(nrb, ncb, rb, cb))
+        return ti, tj, planes[1][ti, tj].astype(np.int32)
+
+    compare("populations", lambda: eng.pops_plan([RADIUS])[1:], host_pops)
+    compare("nn band",
+            lambda: pruning.tile_list_device(eng.nn_band_mask()[1]),
+            lambda: pruning.tile_list(pruning.bidir_closure(
+                pruning.band_mask(nrb, ncb, rb, cb, NN_BAND_BLOCKS * cb),
+                rb, cb)))
+    order = eng.last_stats["nn"]["order"]
+    ub_oid = torch.as_tensor(np.maximum(
+        nn[1], np.where(nn[3] > 0, nn[3], np.inf)).astype(np.float32),
+        device="cuda")
+    oid = eng.oid(order).long()
+    ub = torch.full((eng.n_pad,), float("inf"), device="cuda")
+    ub[:eng.n] = ub_oid[oid[:eng.n]]
+    act = eng.d2b(order) <= ub.reshape(nrb, rb).amax(dim=1)[:, None]
+    if order == NN_BAND_ORDER:
+        act &= ~eng.nn_band_mask()[0]
+    compare("nn phase 2",
+            lambda: pruning.tile_list_device(
+                pruning.bidir_closure_device(act, rb, cb)),
+            lambda: pruning.tile_list(
+                pruning.bidir_closure(act.cpu().numpy(), rb, cb)))
+    del act
+    seng, row_lo = series.engine, 0
+    below = seng._below_plane(md2)
+    for t, nb in zip(THRESHOLDS, series.n_below_per_band):
+        nb = int(nb)
+        compare(f"screening {t}",
+                lambda: seng.tile_list(row_lo, nb, md2),
+                lambda: pruning.tile_list(screen_active(
+                    below.cpu().numpy(), nb, row_lo, seng.row_block,
+                    seng.col_block, True)))
+        row_lo = nb
+    print(f"[plan check] {where}: device / host planner seconds"
+          f" {json.dumps(secs)}")
+    print(f"[plan check] {where}: tiles {json.dumps(tiles)}, identical"
+          " lists under both planners")
+    return secs
+
+
+# -- phase 9 -------------------------------------------------------------------
+
+N_BIG = 1 << 23
+N_SAMPLE = 256
+SAMPLE_COLS = 1 << 18
+
+
+def plan_report(tag, walls, stats):
+    """Print one engine run's stage walls and, per stage, its planner,
+    t_plan and (populations) t_best_sort; returns the stages' planners and
+    tile counts."""
+    stages = {name: {k: st[k] for k in ("plan", "t_plan", "t_best_sort")
+                     if k in st} for name, st in stats.items()}
+    print(f"[big N] {tag}: stages {json.dumps(walls)}")
+    print(f"[big N] {tag}: plans {json.dumps(stages)}")
+    tiles = {"populations": stats["populations"]["computed_tiles"],
+             "nn band": stats["nearest neighbors"]["band_tiles"],
+             "nn phase 2": stats["nearest neighbors"]["phase2_tiles"]}
+    for t in THRESHOLDS:
+        tiles[f"screening {t}"] = stats[f"screening {t}"]["tiles_per_sweep"]
+    return {name: st["plan"] for name, st in stats.items()}, tiles
+
+
+def sampled_check(torch, coords, pops, fe, nn, clust, md2):
+    """N_SAMPLE frames drawn with a seeded generator, by a chunked sweep
+    over all frames with the kernels' arithmetic (``pairwise.sq_dists``):
+    their populations, nearest neighbour and nearest lower-fe neighbour
+    (ties to the smaller id) must equal the engine's exactly, and at the
+    last threshold each one's label must equal that of every admissible
+    neighbour (both at or below the threshold, d2 < md2). Frames are
+    labelled exactly when at or below the threshold."""
+    from clustering_tpu_torch.ops.kernels import KEY_NONE, unpack_keys
+    from clustering_tpu_torch.ops.pairwise import sq_dists
+    n = len(coords)
+    pick = torch.randperm(n, generator=torch.Generator().manual_seed(0))
+    pick = pick[:N_SAMPLE].sort().values
+    x = torch.as_tensor(coords, device="cuda")
+    fe_t = torch.as_tensor(fe, device="cuda")
+    lab = torch.as_tensor(clust, device="cuda")
+    below = fe_t <= float(np.float32(THRESHOLDS[-1]))
+    if not torch.equal(lab > 0, below):
+        fail("the last clustering labels other frames than those at or"
+             " below its threshold")
+    rows = pick.cuda()
+    r2 = float(np.float32(RADIUS) * np.float32(RADIUS))
+    count = torch.zeros(N_SAMPLE, dtype=torch.int64, device="cuda")
+    keys = torch.full((2, N_SAMPLE), KEY_NONE, dtype=torch.int64,
+                      device="cuda")
+    n_adj = torch.zeros((), dtype=torch.int64, device="cuda")
+    bad_lab = torch.zeros((), dtype=torch.int64, device="cuda")
+    for lo in range(0, n, SAMPLE_COLS):
+        cols = torch.arange(lo, min(lo + SAMPLE_COLS, n), device="cuda")
+        d2 = sq_dists(x[rows], x[cols])
+        count += (d2 <= r2).sum(dim=1)
+        key = (d2.view(torch.int32).long() << 32) | cols
+        ok = (d2 > 0.0) & torch.isfinite(d2)
+        lower = fe_t[cols][None, :] < fe_t[rows][:, None]
+        for side, gate in ((0, ok), (1, ok & lower)):
+            keys[side] = torch.minimum(
+                keys[side], torch.where(gate, key, KEY_NONE).amin(dim=1))
+        adj = ((d2 < float(md2)) & below[rows][:, None]
+               & below[cols][None, :])
+        n_adj += adj.sum()
+        bad_lab += (adj & (lab[cols][None, :] != lab[rows][:, None])).sum()
+    d2, ids = unpack_keys(keys)
+    absent = ~(d2 < float("inf"))
+    ids = torch.where(absent, 0, ids).cpu().numpy()
+    d2 = torch.where(absent, 0.0, d2).cpu().numpy()
+    i = pick.numpy()
+    bad = {"populations": int((count.cpu().numpy() != pops[i]).sum())}
+    for side, name in ((0, "nn"), (1, "lower-fe nn")):
+        bad[f"{name} ids"] = int((ids[side] != nn[2 * side][i]).sum())
+        bad[f"{name} d2 bits"] = int(
+            (d2[side].view(np.int32)
+             != np.asarray(nn[2 * side + 1], np.float32)[i].view(np.int32))
+            .sum())
+    bad["labels"] = int(bad_lab)
+    print(f"[big N] sampled check, {N_SAMPLE} frames against all {n}:"
+          f" mismatches {json.dumps(bad)}; {int(absent[1].sum())} of them"
+          f" without a lower-fe neighbour, {int(below[rows].sum())} labelled"
+          f" at {THRESHOLDS[-1]} with {int(n_adj)} admissible pairs")
+    if any(bad.values()):
+        fail("the sampled check disagrees with the engines")
+
+
+@contextlib.contextmanager
+def kernel_events(names):
+    """CUDA events around every call of the named kernels' wrappers while
+    the block runs, on the current stream (no host sync); yields {name:
+    [(start, end), ...]}, to be read after a synchronize."""
+    import torch
+    from clustering_tpu_torch.ops import kernels
+    events = {name: [] for name in names}
+    saved = {name: getattr(kernels, name) for name in names}
+
+    def timed_call(name, fn):
+        def call(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events[name].append((start, end))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(kernels, name, timed_call(name, fn))
+    try:
+        yield events
+    finally:
+        for name, fn in saved.items():
+            setattr(kernels, name, fn)
+
+
+def phase_big_n(torch):
+    """The engines at N_BIG: every stage planned on the device, the three
+    bidirectional kernels launched, the output invariants, the sampled
+    exact check and the plan check."""
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.density import free_energies
+    coords = synthetic_fel(N_BIG, DIM, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    stats, keep = {}, {}
+    with kernel_events(BIDIR_KERNELS) as events:
+        kernels.reset_launches()
+        pops, nn, clust, walls, _ = run_engines(torch, coords, stats, keep)
+        launches = {name: kernels.LAUNCHES[name] for name in BIDIR_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    kernel_ms = {name: sum(a.elapsed_time(b) for a, b in ev)
+                 for name, ev in events.items()}
+    plans, tiles = plan_report(f"N={N_BIG} D={DIM}", walls, stats)
+    print(f"[big N] N={N_BIG}: launches {json.dumps(launches)}, kernel ms"
+          f" {json.dumps(kernel_ms)} ({sum(kernel_ms.values()) / 1e3:.3f} s"
+          f" of {sum(walls.values()):.3f} s of stage walls), tiles"
+          f" {json.dumps(tiles)}, max_memory_allocated {peak} bytes")
+    if set(plans.values()) != {"device"}:
+        fail(f"a stage at N={N_BIG} was not planned on the device: {plans}")
+    for name, count in launches.items():
+        if count <= 0:
+            fail(f"kernel {name} was not launched at N={N_BIG}")
+    fe = free_energies(pops)
+    check_outputs("big N", N_BIG, pops, fe, np.stack([nn[0], nn[2]], 1),
+                  np.stack([nn[1], nn[3]], 1), clust[-1])
+    sampled_check(torch, coords, pops, fe, nn, clust[-1], keep["md2"])
+    plan_check(torch, f"N={N_BIG}", nn=nn, **keep)
+
+
 def main():
     torch, smi = phase_device()
     phase_build()
@@ -955,6 +1230,8 @@ def main():
         launches[name] = tiles_launches[name]
     record = {"kernels": phase_main_path_kernels(torch, calls, launches,
                                                  smi)}
+    del calls, sym_calls, tiles_calls
+    phase_big_n(torch)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,14 @@
 """Device-resident driver for the density pipeline's O(N^2) stages.
 
 Counterpart of ``clustering_tpu/ops/engine.py`` on its single-chip paths:
-host-planned tile sweeps over bbox-pruned tile lists, either
-upper-triangular (bidirectional kernels: each unordered pair evaluated
-once, serving both frames) or symmetric (row-side kernels over both
-orientations). The frame matrix is uploaded once per layout; the bbox
-distances are computed on the device, thresholded there, and the bool
-planes come to the host, where numpy plans the flat tile lists.
+tile sweeps over bbox-pruned tile lists, either upper-triangular
+(bidirectional kernels: each unordered pair evaluated once, serving both
+frames) or symmetric (row-side kernels over both orientations). The frame
+matrix is uploaded once per layout; the bbox distances are computed on
+the device and thresholded there. The bidirectional stages keep every
+mask and tile list on the device (``pruning.*_device``); the symmetric
+ones bring the bool planes to the host, where numpy plans the flat tile
+lists, as in the JAX package. Both give the same tiles in the same order.
 """
 
 import time
@@ -98,6 +100,14 @@ class DensityEngine:
     def _put(self, arr):
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
 
+    def _tiles(self, mask):
+        """Flat (ti, tj) int32 tile list of a host or device mask, on the
+        device, or None."""
+        if isinstance(mask, torch.Tensor):
+            return pruning.tile_list_device(mask)
+        tiles = pruning.tile_list(mask)
+        return None if tiles is None else tuple(map(self._put, tiles))
+
     def coords_t(self, name):
         """(D, N_pad) float32 frame matrix of layout ``name`` on device."""
         return self._cached(("ct", name),
@@ -119,13 +129,11 @@ class DensityEngine:
 
     def _best_sort(self, thresh2):
         """The layout (dim0 or morton) that prunes more tiles at this
-        threshold; dim0 on ties."""
-        best, best_skip = None, -1
-        for name in ("dim0", "morton"):
-            skip = int((self.d2b(name) > float(thresh2)).sum())
-            if skip > best_skip:
-                best, best_skip = name, skip
-        return best
+        threshold; dim0 on ties. Both skip counts come back in one
+        fetch."""
+        skip = torch.stack([(self.d2b(name) > float(thresh2)).sum()
+                            for name in ("dim0", "morton")]).tolist()
+        return "morton" if skip[1] > skip[0] else "dim0"
 
     def _log_stats(self, stage, tiles):
         if is_verbose():
@@ -136,49 +144,60 @@ class DensityEngine:
 
     # -- populations -----------------------------------------------------------
 
-    def pops_plan(self, radii, bidir=True):
+    def pops_plan(self, radii, bidir=True, stats=None):
         """Layout name, tile list and per-tile radius masks of a
-        populations sweep: (name, ti, tj, rmask) numpy int32. The list is
-        the active plane at the largest radius, restricted to the upper
-        triangle when ``bidir``."""
-        nrb = self.n_pad // self.row_block
-        ncb = self.n_pad // self.col_block
-        sq = [np.float32(r) * np.float32(r) for r in radii]
+        populations sweep: (name, ti, tj, rmask), int32 tensors on the
+        device. The list is the active plane at the largest radius,
+        restricted to the upper triangle and planned on the device when
+        ``bidir``, else planned on the host. ``stats``, if given, receives
+        ``t_best_sort``: the seconds spent choosing the layout (its frame
+        order, upload, bbox matrix and skip counts)."""
+        t0 = time.perf_counter()
         r_max2 = np.float32(max(radii)) * np.float32(max(radii))
         name = self._best_sort(r_max2)
-        planes = pruning.threshold_planes(self.d2b(name), [r_max2] + sq)
-        active = planes[0]
+        if stats is not None:
+            stats["t_best_sort"] = time.perf_counter() - t0
+        rb, cb = self.row_block, self.col_block
+        thresh2s = [r_max2] + [np.float32(r) * np.float32(r) for r in radii]
         if bidir:
-            active = active & pruning.upper_mask(nrb, ncb, self.row_block,
-                                                 self.col_block)
-        tiles = pruning.tile_list(active)
+            planes = pruning.le_planes_device(self.d2b(name), thresh2s)
+            tiles = pruning.tile_list_device(
+                pruning.upper_tri_device(planes[0], rb, cb))
+            if tiles is None:
+                empty = torch.zeros(0, dtype=torch.int32, device=self.device)
+                return name, empty, empty, empty
+            return (name,) + tiles + (
+                pruning.rmask_gather_device(planes[1:], *tiles),)
+        planes = pruning.threshold_planes(self.d2b(name), thresh2s)
+        tiles = pruning.tile_list(planes[0])
         if tiles is None:
-            empty = np.zeros(0, np.int32)
-            return name, empty, empty, empty
+            tiles = (np.zeros(0, np.int32),) * 2
         ti, tj = tiles
         rmask = np.zeros(len(ti), dtype=np.int32)
         for r_idx in range(len(radii)):
             rmask |= planes[1 + r_idx][ti, tj].astype(np.int32) << r_idx
-        return name, ti, tj, rmask
+        return (name,) + tuple(map(self._put, (ti, tj, rmask)))
 
     def populations(self, radii):
         """dict radius -> (N,) int64 populations (self included); the
-        sweep's mode ("bidir" or "symmetric") is in
-        ``last_stats["populations"]``."""
+        sweep's mode ("bidir" or "symmetric") and planner ("device" or
+        "host") are in ``last_stats["populations"]``, with ``t_plan`` and
+        the part of it that chose the layout, ``t_best_sort``."""
         t0 = time.perf_counter()
         radii = list(radii)
         bidir = self.POPS_BIDIR
-        name, ti, tj, rmask = self.pops_plan(radii, bidir)
+        stats = {"mode": "bidir" if bidir else "symmetric",
+                 "plan": "device" if bidir else "host"}
+        name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
         radii2 = self._put(np.asarray(
             [np.float32(r) * np.float32(r) for r in radii], np.float32))
-        stats = {"computed_tiles": int(len(ti)),
-                 "mode": "bidir" if bidir else "symmetric",
-                 "t_plan": time.perf_counter() - t0}
+        stats["computed_tiles"] = int(len(ti))
+        stats["t_plan"] = time.perf_counter() - t0
         self._log_stats("pops", stats["computed_tiles"])
         t0 = time.perf_counter()
         ct = self.coords_t(name)
-        args = (radii2, self.n, self._put(ti), self._put(tj),
-                self._put(rmask), self.row_block, self.col_block)
+        args = (radii2, self.n, ti, tj, rmask, self.row_block,
+                self.col_block)
         if bidir:
             counts = kernels.pops_bidir(ct, *args)
         else:
@@ -202,33 +221,36 @@ class DensityEngine:
     def _nn_bidir_ok(self):
         return self.NN_BIDIR and self.col_block % self.row_block == 0
 
-    def _nn_sweep(self, name, fe, active, keys, bidir):
-        """Sweep the tiles of ``active`` in layout ``name`` -- an
-        upper-triangular closure swept bidirectionally, or any mask swept
-        row-side -- folding into the id-keyed ``keys``; returns the number
-        of tiles swept."""
-        tiles = pruning.tile_list(active)
+    def _nn_sweep(self, name, fe, tiles, keys, bidir):
+        """Sweep ``tiles`` (device (ti, tj) or None) in layout ``name`` --
+        an upper-triangular closure swept bidirectionally, or any mask's
+        list swept row-side -- folding into the id-keyed ``keys``; returns
+        the number of tiles swept."""
         if tiles is None:
             return 0
         ct, fe_l, oid = (self.coords_t(name), self._fe_layout(fe, name),
                          self.oid(name))
-        ti, tj = self._put(tiles[0]), self._put(tiles[1])
+        ti, tj = tiles
         if bidir:
             kernels.nn_bidir(ct, fe_l, oid, self.n, ti, tj, keys,
                              self.row_block, self.col_block)
         else:
             kernels.nn_sparse(ct, fe_l, oid, ct, fe_l, oid, self.n, ti, tj,
                               keys, self.row_block, self.col_block)
-        return len(tiles[0])
+        return len(ti)
 
     def nn_band_mask(self, bidir=True):
-        """The band pass's tile mask and the mask it sweeps: its
-        upper-triangular closure when ``bidir``, else the band itself."""
+        """The band pass's tile mask and the mask it sweeps: on the device,
+        the band and its upper-triangular closure, when ``bidir``; else
+        the band on the host (numpy), twice."""
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
+        if bidir:
+            band = pruning.band_mask_device(nrb, ncb, rb, cb,
+                                            NN_BAND_BLOCKS * cb, self.device)
+            return band, pruning.bidir_closure_device(band, rb, cb)
         band = pruning.band_mask(nrb, ncb, rb, cb, NN_BAND_BLOCKS * cb)
-        return band, (pruning.bidir_closure(band, rb, cb) if bidir
-                      else band)
+        return band, band
 
     def nearest_neighbors(self, free_energy):
         """Joint NN / lower-fe NN search with two-phase exact pruning:
@@ -243,45 +265,70 @@ class DensityEngine:
         Both passes fold into one buffer keyed by original frame id.
         Distance ties break toward the smaller original id, as in the
         reference's original-order scan. Returns (nh_idx, nh_d2,
-        nhhd_idx, nhhd_d2) numpy arrays; absent neighbours are (0, 0.0)."""
+        nhhd_idx, nhhd_d2) numpy arrays; absent neighbours are (0, 0.0).
+        ``last_stats["nn"]`` holds the planner ("device" or "host") and
+        three disjoint times: ``t_plan`` (building masks and tile lists),
+        ``t_band`` (the band sweep and the order choice) and ``t_sweep``
+        (phase 2's sweep and the readback)."""
         fe = np.asarray(free_energy, dtype=np.float32)
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
         bidir = self._nn_bidir_ok()
-        stats = {"band_tiles": 0, "mode": "bidir" if bidir else "symmetric"}
+        stats = {"band_tiles": 0, "mode": "bidir" if bidir else "symmetric",
+                 "plan": "device" if bidir else "host", "t_plan": 0.0}
+
+        def planned(fn, *args):
+            t = time.perf_counter()
+            out = fn(*args)
+            stats["t_plan"] += time.perf_counter() - t
+            return out
+
         t0 = time.perf_counter()
         keys = kernels.nn_keys_init(self.n_pad, self.device)
         if ncb > 2 * NN_BAND_BLOCKS:
-            band_active, band_eff = self.nn_band_mask(bidir)
-            stats["band_tiles"] = self._nn_sweep(NN_BAND_ORDER, fe, band_eff,
-                                                 keys, bidir)
+            band, band_eff = planned(self.nn_band_mask, bidir)
+            stats["band_tiles"] = self._nn_sweep(
+                NN_BAND_ORDER, fe, planned(self._tiles, band_eff), keys,
+                bidir)
+            del band_eff
             # per-frame bound: the larger of the two band distances
             d_band, _ = kernels.unpack_keys(keys[:, :self.n])
             ub_oid = d_band.amax(dim=0)
-            best = None
-            for name in ("dim0", "morton"):
+            names, acts = ("dim0", "morton"), []
+            for name in names:
                 oid = self.oid(name).long()
                 ub = torch.full((self.n_pad,), float("inf"),
                                 device=self.device)
                 ub[:self.n] = ub_oid[oid[:self.n]]
                 row_ub = ub.reshape(nrb, rb).amax(dim=1)
-                act = (self.d2b(name) <= row_ub[:, None]).cpu().numpy()
+                act = self.d2b(name) <= row_ub[:, None]
+                if not bidir:
+                    act = act.cpu().numpy()
                 if name == NN_BAND_ORDER:
-                    act = act & ~band_active
-                work = int(act.sum())
-                if best is None or work < best[0]:
-                    best = (work, name, act)
-            _, name, active = best
+                    act = act & ~band
+                acts.append(act)
+            del band
+            work = [a.sum() for a in acts]
+            work = (torch.stack(work).tolist() if bidir
+                    else [int(w) for w in work])
+            # the smaller work wins, dim0 on ties
+            pick = 1 if work[1] < work[0] else 0
+            name, active = names[pick], acts[pick]
+            del acts
             stats["order"] = name
-            stats["t_band"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
+            stats["t_band"] = time.perf_counter() - t0 - stats["t_plan"]
         else:
             # too few column blocks for a band to prune anything
             name = NN_BAND_ORDER
-            active = np.ones((nrb, ncb), dtype=bool)
+            active = (torch.ones((nrb, ncb), dtype=torch.bool,
+                                 device=self.device) if bidir
+                      else np.ones((nrb, ncb), dtype=bool))
+        t0, t_plan0 = time.perf_counter(), stats["t_plan"]
         if bidir:
-            active = pruning.bidir_closure(active, rb, cb)
-        stats["phase2_tiles"] = self._nn_sweep(name, fe, active, keys, bidir)
+            active = planned(pruning.bidir_closure_device, active, rb, cb)
+        tiles = planned(self._tiles, active)
+        del active
+        stats["phase2_tiles"] = self._nn_sweep(name, fe, tiles, keys, bidir)
         d2, ids = kernels.unpack_keys(keys[:, :self.n])
         absent = ~(d2 < float("inf"))
         ids = torch.where(absent, 0, ids)
@@ -289,7 +336,8 @@ class DensityEngine:
         d2 = torch.where(absent, 0.0, d2)
         ids = ids.cpu().numpy()
         d2 = d2.cpu().numpy()
-        stats["t_sweep"] = time.perf_counter() - t0
+        stats["t_sweep"] = (time.perf_counter() - t0
+                            - (stats["t_plan"] - t_plan0))
         stats["computed_tiles"] = stats["band_tiles"] + stats["phase2_tiles"]
         self.last_stats["nn"] = stats
         self._log_stats("nn", stats["computed_tiles"])

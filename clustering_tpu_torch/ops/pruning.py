@@ -1,13 +1,33 @@
 """Block-level spatial pruning for the pairwise tile sweeps.
 
-Counterpart of ``clustering_tpu/ops/pruning.py`` (host planning only).
-The numpy planners are copies of the JAX package's, so the port's frame
-orders, masks and tile sets equal the reference's; the block bounding-box
-distances are computed on the device as plain torch ops. Masks stay bool
-arrays and tile lists are flat: the chunking, power-of-two buckets and
-pads of the JAX package exist only for XLA compile shapes and TPU scalar
-memory. The dense-grid kernels take their mask as the JAX package's
-bit-packed skip words.
+Counterpart of ``clustering_tpu/ops/pruning.py``. The numpy planners are
+copies of the JAX package's, so the port's frame orders, masks and tile
+sets equal the reference's; the block bounding-box distances are computed
+on the device as plain torch ops. Masks stay bool arrays and tile lists
+are flat: the chunking, power-of-two buckets and pads of the JAX package
+exist only for XLA compile shapes and TPU scalar memory. The dense-grid
+kernels take their mask as the JAX package's bit-packed skip words.
+
+Device planning (the ``*_device`` functions): the same masks as torch
+ops on the tensors' device, and :func:`tile_list_device` compacts them
+there, so no (nrb, ncb) plane crosses to the host; the only host traffic
+is the tile count. They emit the numpy planners' tile sets in the same
+row-major order. The engines plan their bidirectional stages with them
+at every N: the JAX package gates them at 2^22 padded frames, but on the
+card no size has shown the host plan faster (``chip_smoke.py`` times both
+planners on the same masks at 2^20 and 2^23). The symmetric stages and
+the skip-word planners plan on the host, as in the JAX package. Not
+ported from the JAX package:
+
+- ``window_counts_device`` and the column windows of
+  ``tile_list_device``: windows bound the Pallas kernels' VMEM
+  accumulators (``POPS_BIDIR_SCRATCH_CAP``, ``NN_BIDIR_SCRATCH_CAP``,
+  ``BIDIR_UNION_VMEM``); the CUDA kernels fold through global atomics
+  over one flat list;
+- the chunk buckets and ``quantize_chunks`` of ``_tile_list_dev_call``:
+  they exist for XLA's static shapes, and so do the lists' pads;
+- ``act_rows_bool_device``: one comparison, inlined in the engine;
+- ``tile_list_device_split``: it deals a list over several chips.
 
 Pruning is exact: a tile is skipped only when its bounding-box distance
 lower bound exceeds the threshold.
@@ -114,12 +134,18 @@ def bbox_d2(coords_t, row_block, col_block):
     return torch.clamp(acc, max=big) * float(margin)
 
 
-def threshold_planes(d2b, thresh2s, strict=False):
-    """(T, nrb, ncb) host bool planes of d2b <= thresh2s[t] (strict <)."""
+def le_planes_device(d2b, thresh2s, strict=False):
+    """(T, nrb, ncb) bool planes of d2b <= thresh2s[t] (strict <) on
+    d2b's device."""
     t = torch.tensor(np.asarray(thresh2s, dtype=np.float32),
                      device=d2b.device)[:, None, None]
-    planes = d2b[None] < t if strict else d2b[None] <= t
-    return planes.cpu().numpy()
+    return d2b[None] < t if strict else d2b[None] <= t
+
+
+def threshold_planes(d2b, thresh2s, strict=False):
+    """:func:`le_planes_device` downloaded: (T, nrb, ncb) host bool
+    planes."""
+    return le_planes_device(d2b, thresh2s, strict).cpu().numpy()
 
 
 def bidir_closure(active, row_block, col_block):
@@ -155,6 +181,63 @@ def band_mask(n_row_blocks, n_col_blocks, row_block, col_block, half_width):
     col_hi = col_lo + col_block
     return ((col_hi[None, :] >= row_centers[:, None] - half_width)
             & (col_lo[None, :] <= row_centers[:, None] + half_width))
+
+
+# -- device planning -----------------------------------------------------------
+
+def upper_tri_device(active, row_block, col_block):
+    """``active`` restricted to the tiles that intersect the strict upper
+    triangle (:func:`upper_mask`), on its device."""
+    nrb, ncb = active.shape
+    ri = torch.arange(nrb, device=active.device)[:, None]
+    cj = torch.arange(ncb, device=active.device)[None, :]
+    return active & ((cj + 1) * col_block > ri * row_block)
+
+
+def bidir_closure_device(active, row_block, col_block):
+    """:func:`bidir_closure` of a bool tensor, on its device: the mirror
+    ``B[cj, ri // span]`` is ``B.T`` with each row repeated span times."""
+    nrb, ncb = active.shape
+    if col_block % row_block != 0:
+        raise ValueError("bidir_closure needs col_block % row_block == 0")
+    span = col_block // row_block
+    if nrb != ncb * span:
+        raise ValueError(f"a ({nrb}, {ncb}) mask is not square in frames")
+    B = active.reshape(ncb, span, ncb).any(dim=1)
+    mirror = B.T.repeat_interleave(span, dim=0)
+    return upper_tri_device(active | mirror, row_block, col_block)
+
+
+def band_mask_device(n_row_blocks, n_col_blocks, row_block, col_block,
+                     half_width, device):
+    """:func:`band_mask` on ``device``, its float comparison doubled into
+    exact int64 arithmetic so that it equals the host mask at any N."""
+    rc2 = (2 * torch.arange(n_row_blocks, device=device) + 1) * row_block
+    col_lo2 = 2 * torch.arange(n_col_blocks, device=device) * col_block
+    col_hi2 = col_lo2 + 2 * col_block
+    hw2 = 2 * half_width
+    return ((col_hi2[None, :] >= rc2[:, None] - hw2)
+            & (col_lo2[None, :] <= rc2[:, None] + hw2))
+
+
+def rmask_gather_device(planes, ti, tj):
+    """Per-tile radius masks of a flat tile list from (R, nrb, ncb) bool
+    planes: bit r set iff tile (ti, tj) is admissible at radius r; int32."""
+    bits = planes[:, ti.long(), tj.long()].to(torch.int32)
+    weights = torch.tensor([1 << r for r in range(planes.shape[0])],
+                           dtype=torch.int32, device=planes.device)
+    return (bits * weights[:, None]).sum(dim=0, dtype=torch.int32)
+
+
+def tile_list_device(active):
+    """:func:`tile_list` of a bool tensor, on its device: row-major flat
+    (ti, tj) int32 tensors, or None when nothing is active. The count is
+    its one host sync."""
+    nz = torch.nonzero(active)
+    if nz.shape[0] == 0:
+        return None
+    tiles = nz.T.to(torch.int32).contiguous()
+    return tiles[0], tiles[1]
 
 
 # -- skip words of the dense-grid kernels (kernels.pops_tiles, nn_tiles) -----

@@ -17,6 +17,9 @@ reach the same fixpoint:
   swept when its row or its column block is dirty;
   symmetric: the row-side kernel over the full list (both orientations),
   a tile swept when its column block is dirty.
+
+The bidirectional sweep's tile lists are planned on the device, the
+symmetric sweep's on the host (the same tiles in the same order).
 """
 
 import time
@@ -37,6 +40,27 @@ def pointer_jump(table):
         if torch.equal(nxt, table):
             return table
         table = nxt
+
+
+def screen_active(below, n_below, row_lo, row_block, col_block, triangular):
+    """Tiles that can hold an admissible pair: the strict-< bbox plane
+    ``below`` (numpy, or a tensor on any device) inside the n_below
+    prefix, touching the new-frame cross when ``row_lo`` > 0, and
+    (``triangular``) intersecting the upper triangle."""
+    nrb, ncb = below.shape
+    if isinstance(below, torch.Tensor):
+        ri = torch.arange(nrb, device=below.device)[:, None]
+        cj = torch.arange(ncb, device=below.device)[None, :]
+    else:
+        ri = np.arange(nrb)[:, None]
+        cj = np.arange(ncb)[None, :]
+    active = below & (ri * row_block < n_below) & (cj * col_block < n_below)
+    if row_lo > 0:
+        active = active & (((ri + 1) * row_block > row_lo)
+                           | ((cj + 1) * col_block > row_lo))
+    if triangular:
+        active = active & ((cj + 1) * col_block > ri * row_block)
+    return active
 
 
 def union_rebase(labels_in, labels_cur):
@@ -76,36 +100,37 @@ class ScreeningEngine:
         padded[:self.n] = coords_sorted
         self.coords_t = torch.as_tensor(np.ascontiguousarray(padded.T),
                                         device=self.device)
-        self._below = None  # (max_dist2, strict-< host bool plane)
+        self._below = None  # (max_dist2, strict-< bool plane on device)
         self.last_stats = {}
 
     def _below_plane(self, max_dist2):
+        """The strict-< bbox activity plane at ``max_dist2`` on the device;
+        the bbox distances are dropped once thresholded (512 MB at 2^23
+        frames)."""
         key = float(max_dist2)
         if self._below is None or self._below[0] != key:
+            self._below = None
             d2b = pruning.bbox_d2(self.coords_t, self.row_block,
                                   self.col_block)
-            below = pruning.threshold_planes(
+            below = pruning.le_planes_device(
                 d2b, [np.float32(max_dist2)], strict=True)[0]
+            del d2b
             self._below = (key, below)
         return self._below[1]
 
     def tile_list(self, row_lo, n_below, max_dist2, triangular=True):
-        """Tiles that can hold an admissible pair: bbox distance below the
-        linking distance, inside the n_below prefix, touching the
-        new-frame cross when ``row_lo`` > 0, and (``triangular``)
-        intersecting the upper triangle. Flat row-major (ti, tj) int32, or
-        None."""
-        rb, cb = self.row_block, self.col_block
-        active_lt = self._below_plane(max_dist2)
-        nrb, ncb = active_lt.shape
-        ri = np.arange(nrb)[:, None]
-        cj = np.arange(ncb)[None, :]
-        active = active_lt & (ri * rb < n_below) & (cj * cb < n_below)
-        if row_lo > 0:
-            active &= ((ri + 1) * rb > row_lo) | ((cj + 1) * cb > row_lo)
+        """The tiles of :func:`screen_active` at this linking distance, as
+        a flat row-major (ti, tj) int32 list, or None: tensors planned on
+        the device when ``triangular`` (the bidirectional sweep's list),
+        else numpy planned on the host (the symmetric sweep's)."""
+        below = self._below_plane(max_dist2)
         if triangular:
-            active &= (cj + 1) * cb > ri * rb
-        return pruning.tile_list(active)
+            return pruning.tile_list_device(screen_active(
+                below, n_below, row_lo, self.row_block, self.col_block,
+                True))
+        return pruning.tile_list(screen_active(
+            below.cpu().numpy(), n_below, row_lo, self.row_block,
+            self.col_block, False))
 
     def union_size(self, n_below):
         """Union prefix: power-of-two col-block count >= n_below."""
@@ -141,6 +166,7 @@ class ScreeningEngine:
         touching the new frames are swept. Returns new device labels."""
         t0 = time.perf_counter()
         bidir = self._bidir_ok()
+        plan = "device" if bidir else "host"
         tiles = self.tile_list(row_lo, n_below, max_dist2, triangular=bidir)
         if tiles is None:
             return labels
@@ -177,9 +203,9 @@ class ScreeningEngine:
         if is_verbose():
             logger(f"    [screening fixpoint: {iters} sweeps,"
                    f" {len(tiles[0])} tiles/sweep, {swept} swept, {mode},"
-                   " host plan, host-driven]")
+                   f" {plan} plan, host-driven]")
         self.last_stats = {"sweeps": iters, "tiles_per_sweep": len(tiles[0]),
-                           "swept_tiles": swept, "mode": mode,
+                           "swept_tiles": swept, "mode": mode, "plan": plan,
                            "t_plan": t_plan,
                            "t_fixpoint": time.perf_counter() - t0 - t_plan}
         return labels
