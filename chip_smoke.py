@@ -59,7 +59,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      the last clustering's label against every admissible neighbour's);
      phase 6's plan check. It prints the stage walls, t_plan, t_best_sort,
      each kernel's time (CUDA events around its calls) and the peak of
-     device memory.
+     device memory;
+ 10. mesh (``clustering_tpu_torch.parallel``): phase 6's configuration
+     through the engines on 2 and 4 gloo ranks sharing cuda:0 (spawned
+     processes, a FileStore rendezvous, a join time limit), the switches
+     on, then 2 ranks with them off. On every rank, populations, nn ids,
+     nn distances (bit for bit) and the four clusterings must equal phase
+     6's run of the same route; each stage's per-rank shares must sum to
+     phase 6's tile count and differ by at most one; each kernel of the
+     route must launch on every rank with a non-empty share, and no other.
+     Each rank runs twice, cold (first in its process) and warm. Then the
+     density CLI at phase 5's argv in a process of its own, plain and
+     under the distributed switches with NCCL at world size 1: both must
+     write phase 5's files, byte for byte. It prints rank 0's stage walls,
+     each rank's summed all_reduce seconds and its tile shares, and the
+     CLI processes' walls.
 
 The line before the last holds the kernels' JSON record, from phase 8;
 the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
@@ -314,7 +328,7 @@ def phase_kernels(torch):
 
     # nearest neighbours: the band pass's tile lists in Morton order, the
     # upper-triangular closure and the band itself
-    counts = want[0, :n].cpu().numpy()
+    counts = want[0, :n].cpu().numpy() + 1  # the engine's self count
     order, _ = eng._padded(name)
     pops = np.empty(n, np.int64)
     pops[order] = counts
@@ -579,13 +593,14 @@ def phase_main(torch, tmp):
 
 # -- phase 6 -------------------------------------------------------------------
 
-def run_engines(torch, coords, stats=None, keep=None):
+def run_engines(torch, coords, stats=None, keep=None, mesh=None):
     """populations -> free energies -> nearest neighbours -> screening
     series through the port's engines on the card, as the density CLI runs
-    them. Returns (pops, nn, clusterings, stage walls, stage modes); fills
-    ``stats``, if given, with each stage's ``last_stats``, and ``keep``,
-    if given, with the density engine, the screener and the linking
-    distance (``engine``, ``series``, ``md2``)."""
+    them, over the ranks of ``mesh`` if given. Returns (pops, nn,
+    clusterings, stage walls, stage modes); fills ``stats``, if given,
+    with each stage's ``last_stats``, and ``keep``, if given, with the
+    density engine, the screener and the linking distance (``engine``,
+    ``series``, ``md2``)."""
     from clustering_tpu_torch.ops.density import free_energies
     from clustering_tpu_torch.ops.engine import DensityEngine
     from clustering_tpu_torch.ops.neighbors import compute_sigma2
@@ -604,7 +619,7 @@ def run_engines(torch, coords, stats=None, keep=None):
         if stats is not None:
             stats[name] = dict(last)
 
-    eng = DensityEngine(coords, device="cuda")
+    eng = DensityEngine(coords, device="cuda", mesh=mesh)
     pops = stage("populations", lambda: eng.populations([RADIUS])[RADIUS])
     record("populations", eng.last_stats["populations"])
     fe = free_energies(pops)
@@ -613,7 +628,8 @@ def run_engines(torch, coords, stats=None, keep=None):
     md2 = np.float32(4.0 * compute_sigma2(nn[1]))
     thresholds = [np.float32(t) for t in THRESHOLDS]
     series = stage("screening setup", lambda: ThresholdSeriesScreener(
-        coords, fe, thresholds, device="cuda", hd_neighbors=(nn[2], nn[3])))
+        coords, fe, thresholds, device="cuda", hd_neighbors=(nn[2], nn[3]),
+        mesh=mesh))
     clust, prev = [], None
     for k, t in enumerate(THRESHOLDS):
         prev = stage(f"screening {t}", series.step, prev, k, md2)
@@ -667,15 +683,15 @@ def phase_symmetric(torch):
     coords = synthetic_fel(N_MAIN, DIM, seed=0)
     runs = {}
     for mode, on in (("bidir", True), ("symmetric", False)):
-        keep = {}
+        keep, stats = {}, {}
         with bidir_switches(on):
             kernels.reset_launches()
-            out = run_engines(torch, coords, keep=keep)
-        runs[mode] = out + (dict(kernels.LAUNCHES),)
+            out = run_engines(torch, coords, stats, keep)
+        runs[mode] = out + (dict(kernels.LAUNCHES), stats)
         if on:
             plan_check(torch, f"N={N_MAIN}", nn=out[1], **keep)
         del keep
-    for mode, (_, _, _, walls, modes, launches) in runs.items():
+    for mode, (_, _, _, walls, modes, launches, _) in runs.items():
         print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
               + json.dumps(walls))
         print(f"[symmetric] {mode} run: modes {json.dumps(modes)}, launches"
@@ -692,12 +708,11 @@ def phase_symmetric(torch):
                 fail(f"kernel {name} was launched by the {mode} run")
     same_results(runs["bidir"], runs["symmetric"],
                  "the bidir and symmetric paths")
-    pops_b, nn_b, _, _, _, _ = runs["bidir"]
-    clust_s, launches = runs["symmetric"][2], runs["symmetric"][5]
+    clust_s = runs["symmetric"][2]
     print(f"[symmetric] N={N_MAIN}: populations, nn ids, nn distances (bit"
           f" for bit) and {len(THRESHOLDS)} clusterings identical;"
           f" {int(clust_s[-1].max())} states at {THRESHOLDS[-1]}")
-    return launches, pops_b, nn_b
+    return runs
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -1077,12 +1092,27 @@ def plan_report(tag, walls, stats):
                      if k in st} for name, st in stats.items()}
     print(f"[big N] {tag}: stages {json.dumps(walls)}")
     print(f"[big N] {tag}: plans {json.dumps(stages)}")
-    tiles = {"populations": stats["populations"]["computed_tiles"],
-             "nn band": stats["nearest neighbors"]["band_tiles"],
-             "nn phase 2": stats["nearest neighbors"]["phase2_tiles"]}
+    return ({name: st["plan"] for name, st in stats.items()},
+            stage_tiles(stats))
+
+
+def stage_tiles(stats, share=False):
+    """Tiles per stage of one ``run_engines`` run's ``stats``: each list's
+    length, or (``share``) this rank's share of it on a mesh."""
+    nn = stats["nearest neighbors"]
+    if share:
+        tiles = {"populations": stats["populations"]["per_device_tiles"],
+                 "nn band": nn["per_device_tiles"]["band"],
+                 "nn phase 2": nn["per_device_tiles"]["phase2"]}
+    else:
+        tiles = {"populations": stats["populations"]["computed_tiles"],
+                 "nn band": nn["band_tiles"],
+                 "nn phase 2": nn["phase2_tiles"]}
     for t in THRESHOLDS:
-        tiles[f"screening {t}"] = stats[f"screening {t}"]["tiles_per_sweep"]
-    return {name: st["plan"] for name, st in stats.items()}, tiles
+        st = stats[f"screening {t}"]
+        tiles[f"screening {t}"] = st[
+            "per_device_tiles" if share else "tiles_per_sweep"]
+    return tiles
 
 
 def sampled_check(torch, coords, pops, fe, nn, clust, md2):
@@ -1210,6 +1240,220 @@ def phase_big_n(torch):
     plan_check(torch, f"N={N_BIG}", nn=nn, **keep)
 
 
+# -- phase 10 ------------------------------------------------------------------
+
+# (ranks, bidirectional switches) of the co-located gloo runs
+MESH_RUNS = ((2, True), (4, True), (2, False))
+MESH_TIMEOUT = 300
+
+
+def mesh_rank(rank, world, store, bidir, out):
+    """One gloo rank of phase 10 on cuda:0: the engines at N_MAIN over the
+    mesh (``run_engines``) twice, the first run in a fresh process (cold),
+    then again (warm), with identical results; every ``all_reduce`` timed
+    between two synchronizes. Writes the warm run's results, stats and
+    launches, and both runs' walls and reduce totals, to ``out``."""
+    import torch
+    import torch.distributed as dist
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.parallel import mesh as pmesh
+    pmesh.initialize("cuda:0", backend="gloo", init_method="file://" + store,
+                     world_size=world, rank=rank)
+    try:
+        mesh = pmesh.make_mesh("cuda:0")
+        all_reduce = dist.all_reduce
+        reduce = []
+
+        def timed_all_reduce(t, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = all_reduce(t, *args, **kw)
+            torch.cuda.synchronize()
+            reduce[-1]["seconds"] += time.perf_counter() - t0
+            reduce[-1]["calls"] += 1
+            reduce[-1]["bytes"] += t.numel() * t.element_size()
+            return work
+
+        dist.all_reduce = timed_all_reduce
+        coords = synthetic_fel(N_MAIN, DIM, seed=0)
+        runs = []
+        for _ in ("cold", "warm"):
+            stats = {}
+            reduce.append({"calls": 0, "seconds": 0.0, "bytes": 0})
+            with bidir_switches(bidir):
+                kernels.reset_launches()
+                runs.append(run_engines(torch, coords, stats, mesh=mesh))
+        same_results(runs[0], runs[1], f"rank {rank}'s cold and warm runs")
+        pops, nn, clust, _, modes = runs[1]
+        meta = {"walls": [run[3] for run in runs], "modes": modes,
+                "reduce": reduce, "launches": dict(kernels.LAUNCHES),
+                "shares": stage_tiles(stats, share=True)}
+        np.savez(out, pops=pops, nn_ids=np.stack([nn[0], nn[2]]),
+                 nn_d2=np.stack([nn[1], nn[3]]), clust=np.stack(clust),
+                 meta=json.dumps(meta))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(torch, world, bidir, tmp):
+    """Start ``world`` gloo ranks (``mesh_rank``) sharing cuda:0 with a
+    FileStore rendezvous in ``tmp``; fail if one fails or any is alive
+    after MESH_TIMEOUT (all are killed then). Returns each rank's
+    (results, meta) and the wall of the whole run."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, f"store{world}{int(bidir)}")
+    outs = [os.path.join(tmp, f"mesh{world}{int(bidir)}_{r}.npz")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank,
+                         args=(r, world, store, bidir, outs[r]))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > MESH_TIMEOUT:
+                fail(f"a mesh rank of {world} hangs after {MESH_TIMEOUT}s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        fail(f"mesh ranks of {world} exited {codes}")
+    ranks = []
+    for out in outs:
+        with np.load(out) as f:
+            ranks.append(({k: f[k] for k in f.files if k != "meta"},
+                          json.loads(str(f["meta"]))))
+    return ranks, wall
+
+
+def phase_mesh(torch, runs, tmp, smi):
+    """Co-located gloo ranks on cuda:0 against phase 6's runs (``runs``),
+    then the CLI under NCCL at world size 1 against phase 5's files."""
+    for world, bidir in MESH_RUNS:
+        route = "bidir" if bidir else "symmetric"
+        pops, nn, clust, _, _, _, stats = runs[route]
+        want_tiles = stage_tiles(stats)
+        ranks, wall = spawn_ranks(torch, world, bidir, tmp)
+        tag = f"[mesh] {world} gloo ranks on cuda:0, {route}"
+        print(f"{tag}: {smi}; N={N_MAIN} D={DIM}, {wall:.3f}s from spawn to"
+              " join")
+        for run, walls in zip(("cold", "warm"), ranks[0][1]["walls"]):
+            print(f"{tag}: rank 0 stages, {run} run {json.dumps(walls)}")
+        for rank, (got, meta) in enumerate(ranks):
+            red = ", ".join(f"{run} {r['calls']} calls, {r['bytes']} bytes,"
+                            f" {r['seconds']:.4f}s" for run, r
+                            in zip(("cold", "warm"), meta["reduce"]))
+            print(f"{tag}: rank {rank} all_reduce {red}; tiles"
+                  f" {json.dumps(meta['shares'])}; launches"
+                  f" {json.dumps(meta['launches'])}")
+            if set(meta["modes"].values()) != {route + "-mesh"}:
+                fail(f"{tag}: rank {rank} took another route:"
+                     f" {meta['modes']}")
+            same_results(
+                (got["pops"], (got["nn_ids"][0], got["nn_d2"][0],
+                               got["nn_ids"][1], got["nn_d2"][1]),
+                 list(got["clust"])),
+                (pops, nn, clust), f"rank {rank} of {world} and phase 6")
+            on, off = ((BIDIR_KERNELS, SPARSE_KERNELS) if bidir
+                       else (SPARSE_KERNELS, BIDIR_KERNELS))
+            shares = meta["shares"]
+            swept = {on[0]: shares["populations"],
+                     on[1]: shares["nn band"] + shares["nn phase 2"],
+                     on[2]: sum(shares[f"screening {t}"]
+                                for t in THRESHOLDS)}
+            for name in on:
+                if swept[name] and meta["launches"][name] <= 0:
+                    fail(f"{tag}: {name} not launched on rank {rank}")
+            for name in off:
+                if meta["launches"][name]:
+                    fail(f"{tag}: {name} launched on rank {rank}")
+        for stage, total in want_tiles.items():
+            shares = [meta["shares"][stage] for _, meta in ranks]
+            if sum(shares) != total or max(shares) - min(shares) > 1:
+                fail(f"{tag}: {stage} shares {shares} do not split its"
+                     f" {total} tiles")
+        print(f"{tag}: populations, nn ids, nn distances (bit for bit) and"
+              f" {len(THRESHOLDS)} clusterings identical to phase 6 on every"
+              " rank; shares sum to phase 6's tiles "
+              + json.dumps(want_tiles))
+    phase_nccl_cli(tmp)
+
+
+def cli_process(tmp, name, distributed):
+    """The density CLI at phase 5's argv on phase 5's coordinates, in a
+    process of its own in ``tmp``/``name``, under the distributed switches
+    at world size 1 if ``distributed``; fails unless its files are
+    byte-identical to phase 5's (but for the time stamp). Returns its
+    stdout, its wall and its stage walls."""
+    import socket
+    import sys
+    main_dir, d = os.path.join(tmp, "main"), os.path.join(tmp, name)
+    os.makedirs(d)
+    os.link(os.path.join(main_dir, "coords.dat"),
+            os.path.join(d, "coords.dat"))
+    env = dict(os.environ,
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    env.pop("CLUSTERING_TORCH_DEVICE", None)
+    if distributed:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env.update(CLUSTERING_TPU_DISTRIBUTED="1",
+                   CLUSTERING_TPU_COORDINATOR=f"localhost:{port}",
+                   CLUSTERING_TPU_NUM_PROCESSES="1",
+                   CLUSTERING_TPU_PROCESS_ID="0")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "clustering_tpu_torch"] + ARGV, cwd=d, env=env,
+        capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"the CLI process {name} exited {proc.returncode}:\n"
+             f"{proc.stdout}\n{proc.stderr}")
+    names = sorted(os.listdir(main_dir))
+    if sorted(os.listdir(d)) != names:
+        fail(f"the CLI process {name} wrote {sorted(os.listdir(d))}, not"
+             f" {names}")
+    for file in names:
+        lines = []
+        for where in (main_dir, d):
+            with open(os.path.join(where, file), "rb") as fh:
+                lines.append([ln for ln in fh.read().splitlines()
+                              if not ln.startswith(b"# Created ")])
+        if lines[0] != lines[1]:
+            fail(f"{file} differs between phase 5 and the CLI process {name}")
+    walls = {m.group(1): float(m.group(2)) for m in
+             re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", proc.stdout)}
+    return proc.stdout, wall, walls
+
+
+def phase_nccl_cli(tmp):
+    """The density CLI in a process of its own, first plain, then under
+    the distributed switches with NCCL at world size 1: both write phase
+    5's files, and the second must run as rank 0 of 1 under NCCL on the
+    mesh route."""
+    for name, distributed in (("plain", False), ("nccl", True)):
+        out, wall, walls = cli_process(tmp, name, distributed)
+        if distributed:
+            rank_line = re.search(r"~~~ rank 0 of 1 \((\w+)\)", out)
+            if rank_line is None or rank_line.group(1) != "nccl":
+                fail("the CLI did not run as rank 0 of 1 under NCCL")
+            if out.count("[mesh screening fixpoint") < len(THRESHOLDS):
+                fail("the NCCL CLI run did not take the mesh route")
+        what = ("NCCL, world size 1" if distributed
+                else "no process group")
+        print(f"[mesh] CLI process, {what}: {wall:.3f}s of process, stages"
+              f" {json.dumps(walls)}; files byte-identical to phase 5's")
+
+
 def main():
     torch, smi = phase_device()
     phase_build()
@@ -1218,20 +1462,21 @@ def main():
         phase_slice(tmp)
         with record_calls(BIDIR_KERNELS) as calls:
             launches = phase_main(torch, tmp)
-    with record_calls(SPARSE_KERNELS) as sym_calls:
-        sym_launches, pops_b, nn_b = phase_symmetric(torch)
-    calls.update(sym_calls)
-    for name in SPARSE_KERNELS:
-        launches[name] = sym_launches[name]
-    with record_calls(TILES_KERNELS) as tiles_calls:
-        tiles_launches, _ = phase_skip_words(torch, pops_b, nn_b)
-    calls.update(tiles_calls)
-    for name in TILES_KERNELS:
-        launches[name] = tiles_launches[name]
-    record = {"kernels": phase_main_path_kernels(torch, calls, launches,
-                                                 smi)}
-    del calls, sym_calls, tiles_calls
-    phase_big_n(torch)
+        with record_calls(SPARSE_KERNELS) as sym_calls:
+            runs = phase_symmetric(torch)
+        calls.update(sym_calls)
+        for name in SPARSE_KERNELS:
+            launches[name] = runs["symmetric"][5][name]
+        with record_calls(TILES_KERNELS) as tiles_calls:
+            tiles_launches, _ = phase_skip_words(torch, *runs["bidir"][:2])
+        calls.update(tiles_calls)
+        for name in TILES_KERNELS:
+            launches[name] = tiles_launches[name]
+        record = {"kernels": phase_main_path_kernels(torch, calls, launches,
+                                                     smi)}
+        del calls, sym_calls, tiles_calls
+        phase_big_n(torch)
+        phase_mesh(torch, runs, tmp, smi)
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,7 @@ numpy-only modes) under the same module names:
   ops/       -- planning (pruning), kernels (wrappers, plain versions,
                 launch counts), engines (populations, neighbours,
                 screening)
+  parallel/  -- several ranks on torch.distributed (mesh, sharded)
   csrc/      -- CUDA C++ sources of the kernels, built by ops/_build.py
   native/    -- C++ text and xtc codecs, built by make at first use
   utils/     -- file formats, logging, stage timer
@@ -23,18 +24,17 @@ __version__ = "0.1.0"
 VERSION_STRING = "v" + __version__
 
 # the API surface loads lazily (PEP 562), as in the JAX package: importing
-# the package for a host mode loads no torch through api -> ops. The JAX
-# package's ``parallel`` (multi-device) is not ported yet.
+# the package for a host mode loads no torch through api -> ops
 _API_NAMES = (
     "populations", "free_energies", "nearest_neighbors",
     "screening_series", "fill_landscape", "mpp_lump", "core_trajectory",
     "assign_noise", "waiting_time_distribution", "Neighborhoods",
-    "MppResult", "api", "ops", "models", "utils")
+    "MppResult", "api", "ops", "parallel", "models", "utils")
 
 
 def __getattr__(name):
     if name in _API_NAMES:
-        if name in ("api", "ops", "models", "utils"):
+        if name in ("api", "ops", "parallel", "models", "utils"):
             import importlib
             return importlib.import_module("." + name, __name__)
         from . import api

@@ -7,6 +7,13 @@ src/clustering.cpp:67-526). ``density`` runs on the device named by
 ``CLUSTERING_TORCH_DEVICE`` (default ``cuda``; asking for CUDA where none
 is available raises). The six host modes run the port's own copies of the
 JAX package's numpy drivers (``models/``), which write the same files.
+
+``density`` runs on several ranks when the environment asks for it, as
+the JAX CLI does: ``CLUSTERING_TPU_DISTRIBUTED=1`` with
+``CLUSTERING_TPU_COORDINATOR=host:port``, ``CLUSTERING_TPU_NUM_PROCESSES``
+and ``CLUSTERING_TPU_PROCESS_ID`` in each process, or ``torchrun
+--nproc-per-node K -m clustering_tpu_torch density ...``. Each rank then
+computes on its own card (``cuda:LOCAL_RANK % device_count``).
 """
 
 import argparse
@@ -292,7 +299,8 @@ DEVICE_ENV = "CLUSTERING_TORCH_DEVICE"
 
 
 def density_device():
-    """The torch device of the density mode (CLUSTERING_TORCH_DEVICE)."""
+    """The torch device of the density mode (CLUSTERING_TORCH_DEVICE); in
+    a process group, this rank's."""
     from .ops.engine import resolve_device
     return resolve_device(os.environ.get(DEVICE_ENV, "cuda"))
 
@@ -308,6 +316,21 @@ def main(argv=None):
         return 1
     if getattr(args, "nthreads", 0) and args.nthreads > 0:
         _limit_host_threads(args.nthreads)
+    distributed = False
+    if args.mode == "density":
+        from .parallel import mesh
+        if mesh.requested():
+            mesh.initialize(os.environ.get(DEVICE_ENV, "cuda"))
+            distributed = True
+    try:
+        return _run(args, argv, distributed)
+    finally:
+        if distributed:
+            import torch.distributed
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, argv, distributed):
     device = density_device() if args.mode == "density" else None
 
     verbose = args.mode == "stats" or getattr(args, "verbose", False)
@@ -316,6 +339,10 @@ def main(argv=None):
            f"              ~ {args.mode} ~\n")
     if device is not None:
         logger(f"~~~ using for parallization: {device} (PyTorch)")
+    if distributed:
+        import torch.distributed as dist
+        logger(f"~~~ rank {dist.get_rank()} of {dist.get_world_size()}"
+               f" ({dist.get_backend()})")
 
     header = io.make_header(args.mode, argv=["clustering"] + argv)
     comments_map = io.default_comments_map()

@@ -6,13 +6,19 @@ artifact files and restart/reuse behaviour (-r/-R, the lumping radius when
 stages on the engines of :mod:`clustering_tpu_torch.ops`. The pure-numpy
 helpers are copies of the JAX module's: it imports its ``ops`` package and
 through it jax.
+
+In a distributed run (the CLI has joined a process group,
+``parallel.mesh.initialize``) every stage is dealt over the group's ranks
+and every rank writes the same files in its own working directory.
 """
 
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch.distributed as dist
 
+from ..parallel.mesh import make_mesh
 from ..utils import io
 from ..utils.logger import logger
 from ..ops import density as dops
@@ -129,9 +135,11 @@ def _check_backends(coords, kind, got, radii=None, fe=None, device="cpu"):
 
 
 def main(args, header_comment, comments_map, device):
-    """density mode on ``device``."""
+    """density mode on ``device``, over the ranks of the process group
+    when one is initialised."""
     coords = io.read_coords(args.file)
-    engine = DensityEngine(coords, device=device)
+    mesh = make_mesh(device) if dist.is_initialized() else None
+    engine = DensityEngine(coords, device=device, mesh=mesh)
     free_energy = None
     # the pops / fe / nn files are written on a worker thread while the
     # next stage computes; every write is joined before the end
@@ -150,7 +158,7 @@ def main(args, header_comment, comments_map, device):
                        header_comment, write_pool, deferred_writes)
         if args.output:
             _cluster_stage(args, coords, free_energy, nh, comments_map,
-                           header_comment, device)
+                           header_comment, device, mesh)
         for fut in deferred_writes:
             fut.result()
     finally:
@@ -268,7 +276,7 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
 
 
 def _cluster_stage(args, coords, free_energy, nh, comments_map,
-                   header_comment, device):
+                   header_comment, device, mesh):
     if args.radii:
         _die("error: output needs to depend on single radius\n"
              "       but several radii (-R) are set.")
@@ -305,7 +313,8 @@ def _cluster_stage(args, coords, free_energy, nh, comments_map,
     with stage_timer("screening setup"):
         series = ThresholdSeriesScreener(coords, free_energy, thresholds,
                                          device=device,
-                                         hd_neighbors=(nh[2], nh[3]))
+                                         hd_neighbors=(nh[2], nh[3]),
+                                         mesh=mesh)
     # each step's label download + naming and its file write overlap the
     # next threshold's sweeps
     with ThreadPoolExecutor(max_workers=2) as post_pool, \

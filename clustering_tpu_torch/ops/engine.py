@@ -9,13 +9,22 @@ the device and thresholded there. The bidirectional stages keep every
 mask and tile list on the device (``pruning.*_device``); the symmetric
 ones bring the bool planes to the host, where numpy plans the flat tile
 lists, as in the JAX package. Both give the same tiles in the same order.
+
+With a mesh (``parallel.mesh``), every rank plans the same lists and
+sweeps its round-robin share of each (``pruning.split_tiles_balanced``);
+the partial counts merge by a SUM over the ranks, the NN keys by a MIN
+after each pass, so every rank holds the whole result (the counterpart of
+the JAX engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``).
 """
 
+import os
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..parallel.mesh import pmin_, psum_
 from ..utils import textio_native
 from ..utils.logger import is_verbose, logger
 from . import kernels, pruning
@@ -29,11 +38,18 @@ NN_BAND_ORDER = "morton"
 
 def resolve_device(device):
     """torch.device for ``device``; a CUDA device must exist (there is no
-    silent CPU fallback)."""
+    silent CPU fallback). In an initialised process group a bare "cuda" is
+    the rank's card, ``cuda:LOCAL_RANK % device_count`` (the rank when
+    LOCAL_RANK is unset)."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    if device.type != "cuda":
+        return device
+    if not torch.cuda.is_available():
         raise RuntimeError("CUDA device requested but torch.cuda is not "
                            "available")
+    if device.index is None and dist.is_available() and dist.is_initialized():
+        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+        device = torch.device("cuda", local % torch.cuda.device_count())
     return device
 
 
@@ -51,14 +67,20 @@ class DensityEngine:
     The switches are the counterparts of the JAX engine's VMEM caps
     (``POPS_BIDIR_SCRATCH_CAP``, ``NN_BIDIR_SCRATCH_CAP``), which 0 turns
     off; the CUDA kernels fold through global atomics and have no such
-    limit."""
+    limit.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) each rank sweeps its share of
+    every tile list on ``device`` and the results merge over the ranks;
+    ``last_stats`` then says ``mode`` "bidir-mesh" or "symmetric-mesh",
+    with ``mesh_devices`` and this rank's ``per_device_tiles``."""
 
     POPS_BIDIR = True
     NN_BIDIR = True
 
     def __init__(self, coords, row_block=DEFAULT_ROW_BLOCK,
-                 col_block=DEFAULT_COL_BLOCK, device="cuda"):
+                 col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.row_block = row_block
         self.col_block = col_block
         self.coords = np.ascontiguousarray(coords, dtype=np.float32)
@@ -135,6 +157,22 @@ class DensityEngine:
                             for name in ("dim0", "morton")]).tolist()
         return "morton" if skip[1] > skip[0] else "dim0"
 
+    def _stats(self, bidir, plan):
+        """A stage's ``last_stats`` start: its mode, planner and mesh."""
+        mode = "bidir" if bidir else "symmetric"
+        if self.mesh is None:
+            return {"mode": mode, "plan": plan}
+        return {"mode": mode + "-mesh", "plan": plan,
+                "mesh_devices": self.mesh.size}
+
+    def _share(self, tiles):
+        """This rank's share of the per-tile tensors ``tiles``: all of
+        them without a mesh."""
+        if self.mesh is None:
+            return tiles
+        return pruning.split_tiles_balanced(tiles, self.mesh.rank,
+                                            self.mesh.size)
+
     def _log_stats(self, stage, tiles):
         if is_verbose():
             frac = (tiles * float(self.row_block * self.col_block)
@@ -186,12 +224,14 @@ class DensityEngine:
         t0 = time.perf_counter()
         radii = list(radii)
         bidir = self.POPS_BIDIR
-        stats = {"mode": "bidir" if bidir else "symmetric",
-                 "plan": "device" if bidir else "host"}
+        stats = self._stats(bidir, "device" if bidir else "host")
         name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
         radii2 = self._put(np.asarray(
             [np.float32(r) * np.float32(r) for r in radii], np.float32))
         stats["computed_tiles"] = int(len(ti))
+        ti, tj, rmask = self._share((ti, tj, rmask))
+        if self.mesh is not None:
+            stats["per_device_tiles"] = int(len(ti))
         stats["t_plan"] = time.perf_counter() - t0
         self._log_stats("pops", stats["computed_tiles"])
         t0 = time.perf_counter()
@@ -201,8 +241,15 @@ class DensityEngine:
         if bidir:
             counts = kernels.pops_bidir(ct, *args)
         else:
+            # the self pair (d2 = 0) counts in its diagonal tile, which
+            # one rank sweeps
             counts = kernels.pops_sparse(ct, ct, *args)
-        counts = counts[:, :self.n].cpu().numpy()
+        if self.mesh is not None:
+            psum_(counts, self.mesh)
+        counts = counts[:, :self.n]
+        if bidir:
+            counts = counts + 1  # each frame's self count, once
+        counts = counts.cpu().numpy()
         stats["t_sweep"] = time.perf_counter() - t0
         self.last_stats["populations"] = stats
         order, _ = self._padded(name)
@@ -221,23 +268,30 @@ class DensityEngine:
     def _nn_bidir_ok(self):
         return self.NN_BIDIR and self.col_block % self.row_block == 0
 
-    def _nn_sweep(self, name, fe, tiles, keys, bidir):
+    def _nn_sweep(self, name, fe, tiles, keys, bidir, stats, stage):
         """Sweep ``tiles`` (device (ti, tj) or None) in layout ``name`` --
         an upper-triangular closure swept bidirectionally, or any mask's
-        list swept row-side -- folding into the id-keyed ``keys``; returns
-        the number of tiles swept."""
+        list swept row-side -- folding into the id-keyed ``keys``; on a
+        mesh, this rank's share, then the keys' MIN over the ranks. Sets
+        ``stats[stage + "_tiles"]`` to the list's length and, on a mesh,
+        ``stats["per_device_tiles"][stage]`` to the share's (both stay 0
+        without a list)."""
         if tiles is None:
-            return 0
+            return
+        stats[stage + "_tiles"] = len(tiles[0])
+        ti, tj = self._share(tiles)
+        if self.mesh is not None:
+            stats["per_device_tiles"][stage] = len(ti)
         ct, fe_l, oid = (self.coords_t(name), self._fe_layout(fe, name),
                          self.oid(name))
-        ti, tj = tiles
         if bidir:
             kernels.nn_bidir(ct, fe_l, oid, self.n, ti, tj, keys,
                              self.row_block, self.col_block)
         else:
             kernels.nn_sparse(ct, fe_l, oid, ct, fe_l, oid, self.n, ti, tj,
                               keys, self.row_block, self.col_block)
-        return len(ti)
+        if self.mesh is not None:
+            pmin_(keys, self.mesh)
 
     def nn_band_mask(self, bidir=True):
         """The band pass's tile mask and the mask it sweeps: on the device,
@@ -269,13 +323,16 @@ class DensityEngine:
         ``last_stats["nn"]`` holds the planner ("device" or "host") and
         three disjoint times: ``t_plan`` (building masks and tile lists),
         ``t_band`` (the band sweep and the order choice) and ``t_sweep``
-        (phase 2's sweep and the readback)."""
+        (phase 2's sweep and the readback); on a mesh, ``per_device_tiles``
+        is this rank's share of each pass, {"band": .., "phase2": ..}."""
         fe = np.asarray(free_energy, dtype=np.float32)
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
         bidir = self._nn_bidir_ok()
-        stats = {"band_tiles": 0, "mode": "bidir" if bidir else "symmetric",
-                 "plan": "device" if bidir else "host", "t_plan": 0.0}
+        stats = self._stats(bidir, "device" if bidir else "host")
+        stats.update(band_tiles=0, phase2_tiles=0, t_plan=0.0)
+        if self.mesh is not None:
+            stats["per_device_tiles"] = {"band": 0, "phase2": 0}
 
         def planned(fn, *args):
             t = time.perf_counter()
@@ -287,11 +344,11 @@ class DensityEngine:
         keys = kernels.nn_keys_init(self.n_pad, self.device)
         if ncb > 2 * NN_BAND_BLOCKS:
             band, band_eff = planned(self.nn_band_mask, bidir)
-            stats["band_tiles"] = self._nn_sweep(
-                NN_BAND_ORDER, fe, planned(self._tiles, band_eff), keys,
-                bidir)
+            self._nn_sweep(NN_BAND_ORDER, fe, planned(self._tiles, band_eff),
+                           keys, bidir, stats, "band")
             del band_eff
-            # per-frame bound: the larger of the two band distances
+            # per-frame bound: the larger of the two band distances (on a
+            # mesh, of the merged keys, so that every rank plans alike)
             d_band, _ = kernels.unpack_keys(keys[:, :self.n])
             ub_oid = d_band.amax(dim=0)
             names, acts = ("dim0", "morton"), []
@@ -328,7 +385,7 @@ class DensityEngine:
             active = planned(pruning.bidir_closure_device, active, rb, cb)
         tiles = planned(self._tiles, active)
         del active
-        stats["phase2_tiles"] = self._nn_sweep(name, fe, tiles, keys, bidir)
+        self._nn_sweep(name, fe, tiles, keys, bidir, stats, "phase2")
         d2, ids = kernels.unpack_keys(keys[:, :self.n])
         absent = ~(d2 < float("inf"))
         ids = torch.where(absent, 0, ids)

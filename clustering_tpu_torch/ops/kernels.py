@@ -168,19 +168,19 @@ def pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
                               w.sum(dim=2, dtype=torch.int32).reshape(-1))
             out[r].index_add_(0, cols.reshape(-1),
                               w.sum(dim=1, dtype=torch.int32).reshape(-1))
-    self_cnt = (torch.arange(n_pad, device=coords_t.device) < n_valid)
-    return out + self_cnt.to(torch.int32)[None, :]
+    return out
 
 
 def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
                col_block):
     """Bidirectional population counts over an upper-triangular tile list
-    (replaces ``_pops_bidir_kernel`` + ``_add_self_count``).
+    (replaces ``_pops_bidir_kernel``).
 
     Each strictly-upper pair row < col < n_valid of a tile with
-    d2 <= radii2[r] and bit r of its ``rmask`` set adds 1 to both frames;
-    every frame below n_valid then gets its self count. Returns
-    (R, N_pad) int32 counts in the layout's frame positions."""
+    d2 <= radii2[r] and bit r of its ``rmask`` set adds 1 to both frames.
+    The self count (``_add_self_count``) is the caller's, added once after
+    any merge of partial counts. Returns (R, N_pad) int32 counts in the
+    layout's frame positions."""
     if coords_t.device.type == "cpu":
         return pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask,
                                 row_block, col_block)
@@ -207,8 +207,7 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
                  n_dim, _ptr(radii2[g:]), n_g, int(n_valid), _ptr(ti),
                  _ptr(tj), _ptr(rm_g), n_tiles, row_block, col_block,
                  _ptr(out[g:]), stream)
-    self_cnt = (torch.arange(n_pad, device=coords_t.device) < n_valid)
-    return out + self_cnt.to(torch.int32)[None, :]
+    return out
 
 def pops_sparse_plain(rows_t, cols_t, radii2, n_valid, ti, tj, rmask,
                       row_block, col_block):

@@ -20,6 +20,12 @@ reach the same fixpoint:
 
 The bidirectional sweep's tile lists are planned on the device, the
 symmetric sweep's on the host (the same tiles in the same order).
+
+With a mesh (``parallel.mesh``), every rank sweeps its round-robin share
+of the list and the swept labels (bidir) or proposals (symmetric) merge
+by a MIN over the ranks before the union, which then runs on identical
+tensors on every rank: convergence needs no other collective (the
+counterpart of the JAX package's ``_screening_sharded_pallas_bidir``).
 """
 
 import time
@@ -29,6 +35,7 @@ import torch
 
 from ..utils.logger import is_verbose, logger
 
+from ..parallel.mesh import pmin_
 from . import kernels, pruning
 from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, resolve_device
 
@@ -82,13 +89,15 @@ class ScreeningEngine:
     common multiple. The fixpoint sweeps bidirectionally when ``BIDIR``
     is on (the counterpart of the JAX engine's ``BIDIR_UNION_VMEM``, which
     0 turns off) and col_block % row_block == 0 (the row-dirty flags
-    reshape the union into row blocks), else symmetrically."""
+    reshape the union into row blocks), else symmetrically. With a
+    ``mesh`` each rank sweeps its share of the list on ``device``."""
 
     BIDIR = True
 
     def __init__(self, coords_sorted, row_block=DEFAULT_ROW_BLOCK,
-                 col_block=DEFAULT_COL_BLOCK, device="cuda"):
+                 col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.row_block = row_block
         self.col_block = col_block
         coords_sorted = np.asarray(coords_sorted, dtype=np.float32)
@@ -163,7 +172,9 @@ class ScreeningEngine:
         """Fixpoint from (N_pad,) int32 device labels; ``row_lo`` > 0
         marks a series continuation whose first row_lo positions already
         carry a completed fixpoint at this max_dist2, so only tiles
-        touching the new frames are swept. Returns new device labels."""
+        touching the new frames are swept. Returns new device labels. On a
+        mesh, ``swept_tiles`` and ``per_device_tiles`` count this rank's
+        share."""
         t0 = time.perf_counter()
         bidir = self._bidir_ok()
         plan = "device" if bidir else "host"
@@ -172,8 +183,12 @@ class ScreeningEngine:
             return labels
         rb, cb = self.row_block, self.col_block
         union_size = self.union_size(n_below)
+        n_tiles = len(tiles[0])
         ti = torch.as_tensor(tiles[0], device=self.device)
         tj = torch.as_tensor(tiles[1], device=self.device)
+        if self.mesh is not None:
+            ti, tj = pruning.split_tiles_balanced((ti, tj), self.mesh.rank,
+                                                  self.mesh.size)
         t_plan = time.perf_counter() - t0
         dirty_col = torch.ones(self.n_pad // cb, dtype=torch.bool,
                                device=self.device)
@@ -188,11 +203,15 @@ class ScreeningEngine:
                 labels_swept = kernels.label_min_bidir(
                     self.coords_t, labels, n_below, max_dist2, ti, tj,
                     dirty.to(torch.int32), rb, cb)
+                if self.mesh is not None:
+                    pmin_(labels_swept, self.mesh)
             else:
                 swept += int(dirty_col[tj.long()].sum())
                 prop = kernels.label_min_sparse(
                     self.coords_t, self.coords_t, labels, n_below, max_dist2,
                     ti, tj, 0, dirty_col.to(torch.int32), rb, cb)
+                if self.mesh is not None:
+                    pmin_(prop, self.mesh)
                 labels_swept = torch.minimum(labels, prop)
             labels, changed, dirty_col, dirty_row = self._union_step(
                 labels, labels_swept, union_size, bidir)
@@ -200,14 +219,20 @@ class ScreeningEngine:
             if not changed:
                 break
         mode = "bidir" if bidir else "symmetric"
+        stats = {"sweeps": iters, "tiles_per_sweep": n_tiles,
+                 "swept_tiles": swept, "mode": mode, "plan": plan,
+                 "t_plan": t_plan}
+        tag = ""
+        if self.mesh is not None:
+            tag = "mesh "
+            stats.update(mode=mode + "-mesh", mesh_devices=self.mesh.size,
+                         per_device_tiles=len(ti))
         if is_verbose():
-            logger(f"    [screening fixpoint: {iters} sweeps,"
-                   f" {len(tiles[0])} tiles/sweep, {swept} swept, {mode},"
+            logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
+                   f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
                    f" {plan} plan, host-driven]")
-        self.last_stats = {"sweeps": iters, "tiles_per_sweep": len(tiles[0]),
-                           "swept_tiles": swept, "mode": mode, "plan": plan,
-                           "t_plan": t_plan,
-                           "t_fixpoint": time.perf_counter() - t0 - t_plan}
+        stats["t_fixpoint"] = time.perf_counter() - t0 - t_plan
+        self.last_stats = stats
         return labels
 
     def run(self, initial_labels, n_below, max_dist2, row_lo=0):
@@ -226,11 +251,13 @@ class ThresholdSeriesScreener:
     Frames are laid out in (threshold band, Morton) order: the prefix
     below every series threshold stays contiguous while Morton order
     inside each band keeps tile bounding boxes tight. Clusters are named
-    by their minimal FE-sorted frame rank, as in the reference."""
+    by their minimal FE-sorted frame rank, as in the reference. With a
+    ``mesh``, every rank runs the series on its share of each step's
+    list, from the main thread (``step_submit``'s pool only downloads)."""
 
     def __init__(self, coords, free_energy, thresholds,
                  row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
-                 device="cuda", hd_neighbors=None):
+                 device="cuda", hd_neighbors=None, mesh=None):
         coords = np.asarray(coords, dtype=np.float32)
         fe = np.asarray(free_energy, dtype=np.float32)
         self.thresholds = [np.float32(t) for t in thresholds]
@@ -253,7 +280,8 @@ class ThresholdSeriesScreener:
         self._fe_asc_pos = self._series_rank[fe_order]
         self.engine = ScreeningEngine(coords[self.order],
                                       row_block=row_block,
-                                      col_block=col_block, device=device)
+                                      col_block=col_block, device=device,
+                                      mesh=mesh)
         self.n = n
         self._prev_nb = 0
         self._labels = None

@@ -1,8 +1,7 @@
 """The port's package-level API against the JAX package's.
 
 Every name the JAX package serves (``clustering_tpu._API_NAMES``) resolves
-in ``clustering_tpu_torch`` too, except ``parallel`` (multi-device, not
-ported yet), and comes from the port's own modules. The host functions
+in ``clustering_tpu_torch`` too, and comes from the port's own modules. The host functions
 (``fill_landscape``, ``mpp_lump``, ``core_trajectory``, ``assign_noise``,
 ``waiting_time_distribution``) give outputs equal to the JAX package's on
 the same seeded inputs: the density artifacts of a two-blob data set,
@@ -24,7 +23,7 @@ from clustering_tpu_torch.ops import neighbors as tneighbors
 from clustering_tpu_torch.ops import screening as tscreening
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-NAMES = [name for name in ct._API_NAMES if name != "parallel"]
+NAMES = list(ct._API_NAMES)
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -36,10 +35,12 @@ def test_api_name_resolves_in_both_packages(name):
     assert name in dir(ctt)
 
 
-def test_only_parallel_is_missing():
-    assert set(ct._API_NAMES) - set(ctt._API_NAMES) == {"parallel"}
+def test_api_names_equal_the_jax_packages():
+    assert set(ct._API_NAMES) == set(ctt._API_NAMES)
+    assert ctt.parallel.sharded.populations.__module__ == (
+        "clustering_tpu_torch.parallel.sharded")
     with pytest.raises(AttributeError):
-        ctt.parallel  # noqa: B018
+        ctt.no_such_name  # noqa: B018
 
 
 @pytest.mark.parametrize("name,module", [

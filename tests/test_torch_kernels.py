@@ -62,10 +62,9 @@ def test_pops_bidir_matches_pallas(d):
     ti = np.append(ti, ti[-1]).astype(np.int32)
     tj = np.append(tj, -1).astype(np.int32)
     rmask = np.append(rmask, 0).astype(np.int32)
-    want = pk._add_self_count(
-        pk.pops_tiles_sparse_bidir(ct, radii2, np.int32(n), ti, tj, rmask,
-                                   row_block=RB, col_block=CB),
-        np.int32(n))
+    # the self count (``_add_self_count``) is the engine's, not the kernel's
+    want = pk.pops_tiles_sparse_bidir(ct, radii2, np.int32(n), ti, tj, rmask,
+                                      row_block=RB, col_block=CB)
     before = dict(kernels.LAUNCHES)
     got = kernels.pops_bidir(torch.from_numpy(ct), torch.from_numpy(radii2),
                              n, torch.from_numpy(ti), torch.from_numpy(tj),
@@ -99,10 +98,8 @@ def test_pops_bidir_nine_radii_and_ties_match_pallas(d):
     ti, tj = _tiles(ct.shape[1], seed=80 + d, frac=1.0)
     rng = np.random.default_rng(d)
     rmask = (rng.integers(0, 1 << 9, size=len(ti)) | 0b1111).astype(np.int32)
-    want = np.asarray(pk._add_self_count(
-        pk.pops_tiles_sparse_bidir(ct, radii2, np.int32(n), ti, tj, rmask,
-                                   row_block=RB, col_block=CB),
-        np.int32(n)))
+    want = np.asarray(pk.pops_tiles_sparse_bidir(
+        ct, radii2, np.int32(n), ti, tj, rmask, row_block=RB, col_block=CB))
     args = (torch.from_numpy(ti), torch.from_numpy(tj),
             torch.from_numpy(rmask), RB, CB)
     got = kernels.pops_bidir(torch.from_numpy(ct), torch.from_numpy(radii2),

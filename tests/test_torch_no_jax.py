@@ -48,11 +48,12 @@ def test_every_module_imports_without_jax():
     mods = _modules()
     assert "clustering_tpu_torch.ops.kernels" in mods
     assert "clustering_tpu_torch.models.state_filter" in mods
+    assert "clustering_tpu_torch.parallel.sharded" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "import clustering_tpu_torch as p\n"
-            "p.populations, p.screening_series\n"
+            "p.populations, p.screening_series, p.parallel.sharded\n"
             f"bad = {FOREIGN}\n"
             "assert not bad, bad\n"
             "print('ok', len(sys.modules))\n")
