@@ -26,17 +26,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      printed); pop, fe and clust.* files identical, nn ids identical, nn
      distances bit-equal or within one unit of the last printed digit;
   5. the main path at N = 2^20, D = 4: ``density -r 0.1 -T 0.5 0.5 2.0``
-     through the port's CLI, with its stage walls, the launch count of
-     every bidirectional kernel (each must be > 0) and output invariants;
+     through the port's CLI, with its stage walls and sub-stage times, the
+     launch count of every bidirectional kernel (each must be > 0) and
+     output invariants; its ``-v`` log must show the NN stage taking the
+     band pass that populations started and the screener built during
+     NN, and its pop, nn and clust.* data lines must equal those of the
+     pipeline before (block-bound NN without prefetch, the screener built
+     after NN) on the coordinates it read;
   6. the symmetric path at N = 2^20, D = 4, r = 0.1, thresholds
      0.5/1.0/1.5/2.0: populations -> free energies -> nearest neighbours
      -> screening series through the engines, once with the bidirectional
      switches on and once with them off (``POPS_BIDIR``, ``NN_BIDIR``,
      ``BIDIR``); populations, nn ids, nn distances (bit for bit) and every
      clustering must be identical, every row-side kernel launched in the
-     symmetric run and no bidirectional one; after the bidirectional run,
-     the plan check (each device planner's tile list against the numpy
-     planners' on the same masks, identical, with both planners' times);
+     symmetric run and no bidirectional one. Each run pipelines as the
+     CLI does (band prefetch, the screener built during NN); NN takes the
+     auto rule's phase 2 on the bidirectional run and the tiered one on
+     the symmetric run (``nn_sparse`` on a row-only tiered list), and
+     once more block-bound (``tier_check``), which must give the same
+     neighbours bit for bit; after the bidirectional run, the plan check
+     (each device planner's tile list against the numpy planners' on the
+     same masks, identical, with both planners' times);
   7. the skip-word route at N = 2^20, D = 4, r = 0.1, as the library
      functions ``pops_tiles`` and ``nn_tiles`` are meant to be composed:
      Morton layout, populations under radius skip words, free energies,
@@ -57,7 +67,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      bidirectional kernel; phase 5's output invariants; a sampled exact
      check of 256 frames against all N (populations, both neighbours, and
      the last clustering's label against every admissible neighbour's);
-     phase 6's plan check. It prints the stage walls, t_plan, t_best_sort,
+     phase 6's tier check and plan check. It prints the stage walls,
+     t_plan, t_best_sort,
      each kernel's time (CUDA events around its calls) and the peak of
      device memory;
  10. mesh (``clustering_tpu_torch.parallel``): phase 6's configuration
@@ -65,8 +76,9 @@ Phases, each printing its own lines; any failure exits non-zero:
      processes, a FileStore rendezvous, a join time limit), the switches
      on, then 2 ranks with them off. On every rank, populations, nn ids,
      nn distances (bit for bit) and the four clusterings must equal phase
-     6's run of the same route; each stage's per-rank shares must sum to
-     phase 6's tile count and differ by at most one; each kernel of the
+     6's run of the same route, NN's phase 2 its mode (the row-side route
+     stays block-bound on a mesh); each stage's per-rank shares must sum
+     to phase 6's tile count and differ by at most one; each kernel of the
      route must launch on every rank with a non-empty share, and no other.
      Each rank runs twice, cold (first in its process) and warm. Then the
      density CLI at phase 5's argv in a process of its own, plain and
@@ -100,6 +112,7 @@ ARGV = ["density", "-f", "coords.dat", "-r", str(RADIUS), "-p", "pop",
         "-d", "fe", "-b", "nn", "-o", "clust", "-T", "0.5", "0.5", "2.0",
         "-v"]
 THRESHOLDS = ("0.50", "1.00", "1.50", "2.00")
+SUBSTAGES_ENV = "CLUSTERING_TPU_PROFILE_SUBSTAGES"
 KERNELS = {
     "pops_bidir": "clustering_tpu/ops/pallas_kernels.py:291",
     "nn_bidir": "clustering_tpu/ops/pallas_kernels.py:1091",
@@ -560,7 +573,11 @@ def phase_main(torch, tmp):
     coords = synthetic_fel(N_MAIN, DIM, seed=0)
     kernels.reset_launches()
     t0 = time.perf_counter()
-    out = run_cli(os.path.join(tmp, "main"), coords, "cuda")
+    os.environ[SUBSTAGES_ENV] = "1"
+    try:
+        out = run_cli(os.path.join(tmp, "main"), coords, "cuda")
+    finally:
+        del os.environ[SUBSTAGES_ENV]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
@@ -573,6 +590,21 @@ def phase_main(torch, tmp):
     print(f"[main] N={N_MAIN} D={DIM}: wall {wall:.3f}s, stages "
           + json.dumps({k: walls[k] for k in walls}))
     print(f"[main] launches {json.dumps(launches)}")
+    # the NN stage took the band pass that populations started, and the
+    # screener was built while it ran
+    nn_line = re.search(r"\[nn: (\d+) tiles computed = [0-9.]+% of N\^2"
+                        r" incl\. padding, ([a-z-]+) phase 2(, band"
+                        r" prefetched)?\]", out)
+    built = re.search(r"\[screener built during nearest neighbors in"
+                      r" ([0-9.]+)s\]", out)
+    subs = dict(re.findall(r"\[(\w+) substages: ([^\]]*)\]", out))
+    if nn_line is None or not nn_line.group(3):
+        fail("the CLI's NN stage did not take the band prefetch")
+    if built is None:
+        fail("the CLI did not build the screener during the NN stage")
+    print(f"[main] NN {nn_line.group(2)} phase 2, {nn_line.group(1)} tiles"
+          f" (band and phase 2), band prefetched; screener built during NN"
+          f" in {built.group(1)}s; substages {json.dumps(subs)}")
     for name in BIDIR_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the main path")
@@ -593,50 +625,81 @@ def phase_main(torch, tmp):
 
 # -- phase 6 -------------------------------------------------------------------
 
-def run_engines(torch, coords, stats=None, keep=None, mesh=None):
+def run_engines(torch, coords, stats=None, keep=None, mesh=None,
+                tier_qs="auto"):
     """populations -> free energies -> nearest neighbours -> screening
     series through the port's engines on the card, as the density CLI runs
-    them, over the ranks of ``mesh`` if given. Returns (pops, nn,
-    clusterings, stage walls, stage modes); fills ``stats``, if given,
-    with each stage's ``last_stats``, and ``keep``, if given, with the
-    density engine, the screener and the linking distance (``engine``,
-    ``series``, ``md2``)."""
+    them: without a mesh, populations starts the NN band pass and the
+    screener is built on a worker thread while NN runs (its lower-fe edges
+    attached after), over the ranks of ``mesh`` one after the other. NN
+    takes ``tier_qs``. Returns (pops, nn, clusterings, stage walls, stage
+    routes); fills ``stats``, if given, with each stage's ``last_stats``,
+    and ``keep``, if given, with the density engine, the screener, the
+    linking distance, the free energies and the screener's build seconds
+    without a mesh (``engine``, ``series``, ``md2``, ``fe``,
+    ``screener_build``)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from clustering_tpu_torch.ops.density import free_energies
     from clustering_tpu_torch.ops.engine import DensityEngine
     from clustering_tpu_torch.ops.neighbors import compute_sigma2
     from clustering_tpu_torch.ops.screening import ThresholdSeriesScreener
     walls, modes = {}, {}
 
-    def stage(name, fn, *args):
+    def stage(name, fn, *args, sync=True):
         t0 = time.perf_counter()
         out = fn(*args)
-        torch.cuda.synchronize()
+        if sync:
+            torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
         return out
 
     def record(name, last):
-        modes[name] = last["mode"]
+        modes[name] = last.get("route", last["mode"])
         if stats is not None:
             stats[name] = dict(last)
 
+    def build(fe, thresholds):
+        t0 = time.perf_counter()
+        series = ThresholdSeriesScreener(coords, fe, thresholds,
+                                         device="cuda")
+        return series, time.perf_counter() - t0
+
     eng = DensityEngine(coords, device="cuda", mesh=mesh)
-    pops = stage("populations", lambda: eng.populations([RADIUS])[RADIUS])
+    # its counts are on the host already; a device sync here would wait
+    # for the band pass it started
+    pops = stage("populations", lambda: eng.populations(
+        [RADIUS], nn_band_radius=RADIUS)[RADIUS], sync=False)
     record("populations", eng.last_stats["populations"])
     fe = free_energies(pops)
-    nn = stage("nearest neighbors", lambda: eng.nearest_neighbors(fe))
-    record("nearest neighbors", eng.last_stats["nn"])
-    md2 = np.float32(4.0 * compute_sigma2(nn[1]))
     thresholds = [np.float32(t) for t in THRESHOLDS]
-    series = stage("screening setup", lambda: ThresholdSeriesScreener(
-        coords, fe, thresholds, device="cuda", hd_neighbors=(nn[2], nn[3]),
-        mesh=mesh))
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        fut = None if mesh is not None else pool.submit(build, fe,
+                                                        thresholds)
+        nn = stage("nearest neighbors",
+                   lambda: eng.nearest_neighbors(fe, tier_qs=tier_qs))
+        record("nearest neighbors", eng.last_stats["nn"])
+        md2 = np.float32(4.0 * compute_sigma2(nn[1]))
+
+        def setup():
+            if fut is None:
+                return ThresholdSeriesScreener(
+                    coords, fe, thresholds, device="cuda",
+                    hd_neighbors=(nn[2], nn[3]), mesh=mesh)
+            series, t_build = fut.result()
+            series.set_hd_neighbors((nn[2], nn[3]))
+            if keep is not None:
+                keep["screener_build"] = t_build
+            return series
+
+        series = stage("screening setup", setup)
     clust, prev = [], None
     for k, t in enumerate(THRESHOLDS):
         prev = stage(f"screening {t}", series.step, prev, k, md2)
         clust.append(prev)
         record(f"screening {t}", series.engine.last_stats)
     if keep is not None:
-        keep.update(engine=eng, series=series, md2=md2)
+        keep.update(engine=eng, series=series, md2=md2, fe=fe)
     return pops, nn, clust, walls, modes
 
 
@@ -678,18 +741,64 @@ def same_results(run_a, run_b, what):
             fail(f"clustering at {t} differs between {what}")
 
 
-def phase_symmetric(torch):
+def tier_check(torch, where, keep, nn, stats, walls):
+    """NN once more on a ``run_engines`` run's engine, block-bound
+    (``tier_qs=None``): ids and distances must equal the run's ``nn`` bit
+    for bit. Prints both runs' phase-2 mode and tiles, NN wall and
+    sub-stage times; stores the block-bound run's stats in
+    ``stats["nn block-bound"]``."""
+    eng = keep["engine"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nn_bb = eng.nearest_neighbors(keep["fe"], tier_qs=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats["nn block-bound"] = dict(eng.last_stats["nn"])
+    for i in (0, 2):
+        if not np.array_equal(nn[i], nn_bb[i]):
+            fail(f"{where}: nn ids differ between the run and block-bound")
+    for i in (1, 3):
+        if not np.array_equal(nn[i].view(np.int32), nn_bb[i].view(np.int32)):
+            fail(f"{where}: nn distances differ between the run and"
+                 " block-bound")
+
+    def row(st, wall):
+        keys = ("mode", "route", "band_prefetched", "order", "band_tiles",
+                "phase2_tiles", "t_band", "t_plan", "t_sweep")
+        return dict({k: st[k] for k in keys if k in st}, wall=wall)
+
+    run = row(stats["nearest neighbors"], walls["nearest neighbors"])
+    print(f"[tiers] {where}: the run's NN {json.dumps(run)}")
+    print(f"[tiers] {where}: block-bound NN"
+          f" {json.dumps(row(stats['nn block-bound'], wall))}; ids and"
+          " distances bit-identical")
+
+
+def phase_symmetric(torch, calls):
+    """Phase 6; ``calls`` is the record of the row-side kernels' calls,
+    from which the block-bound check's own calls are taken out."""
     from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.engine import DensityEngine
     coords = synthetic_fel(N_MAIN, DIM, seed=0)
     runs = {}
     for mode, on in (("bidir", True), ("symmetric", False)):
         keep, stats = {}, {}
+        # the row-side route tiers its phase 2 whatever the auto rule says,
+        # so that nn_sparse sweeps a tiered list
+        qs = "auto" if on else DensityEngine.TIER_QS_DEFAULT
         with bidir_switches(on):
             kernels.reset_launches()
-            out = run_engines(torch, coords, stats, keep)
-        runs[mode] = out + (dict(kernels.LAUNCHES), stats)
+            out = run_engines(torch, coords, stats, keep, tier_qs=qs)
+            runs[mode] = out + (dict(kernels.LAUNCHES), stats)
+            n_calls = len(calls["nn_sparse"])
+            tier_check(torch, f"N={N_MAIN} {mode}", keep, out[1], stats,
+                       out[3])
+            del calls["nn_sparse"][n_calls:]
+        print(f"[symmetric] {mode} run: screener built during NN in"
+              f" {keep['screener_build']:.3f}s")
         if on:
-            plan_check(torch, f"N={N_MAIN}", nn=out[1], **keep)
+            plan_check(torch, f"N={N_MAIN}", keep["engine"], keep["series"],
+                       keep["md2"], out[1])
         del keep
     for mode, (_, _, _, walls, modes, launches, _) in runs.items():
         print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
@@ -708,11 +817,59 @@ def phase_symmetric(torch):
                 fail(f"kernel {name} was launched by the {mode} run")
     same_results(runs["bidir"], runs["symmetric"],
                  "the bidir and symmetric paths")
+    if runs["symmetric"][6]["nearest neighbors"]["mode"] != "tiered":
+        fail("the symmetric run's NN did not sweep a tiered phase 2")
     clust_s = runs["symmetric"][2]
     print(f"[symmetric] N={N_MAIN}: populations, nn ids, nn distances (bit"
           f" for bit) and {len(THRESHOLDS)} clusterings identical;"
           f" {int(clust_s[-1].max())} states at {THRESHOLDS[-1]}")
     return runs
+
+
+def cli_files_check(torch, tmp):
+    """Phase 5's files (the CLI: band prefetch, the auto rule's phase 2,
+    the screener built during NN) against the pipeline before them, on
+    the coordinates the CLI read: populations, NN block-bound without a
+    prefetch, the screener built after NN. The pop, nn and clust.* data
+    lines the port's writers give for its arrays must equal phase 5's,
+    byte for byte."""
+    from clustering_tpu_torch.ops.density import free_energies
+    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.ops.neighbors import compute_sigma2
+    from clustering_tpu_torch.ops.screening import ThresholdSeriesScreener
+    from clustering_tpu_torch.utils import io as tio
+    d, ref = os.path.join(tmp, "main"), os.path.join(tmp, "before")
+    os.makedirs(ref)
+    coords = tio.read_coords(os.path.join(d, "coords.dat"))
+    eng = DensityEngine(coords, device="cuda")
+    pops = eng.populations([RADIUS])[RADIUS]
+    fe = free_energies(pops)
+    nn = eng.nearest_neighbors(fe, tier_qs=None)
+    st = eng.last_stats["nn"]
+    if st["band_prefetched"] or st["mode"] != "block-bound":
+        fail("the pipeline before this change ran another NN route")
+    md2 = np.float32(4.0 * compute_sigma2(nn[1]))
+    series = ThresholdSeriesScreener(
+        coords, fe, [np.float32(t) for t in THRESHOLDS], device="cuda",
+        hd_neighbors=(nn[2], nn[3]))
+    tio.write_pops(os.path.join(ref, "pop"), pops, "", {})
+    tio.write_neighborhood(os.path.join(ref, "nn"), *nn)
+    prev = None
+    for k, t in enumerate(THRESHOLDS):
+        prev = series.step(prev, k, md2)
+        tio.write_clustered_trajectory(os.path.join(ref, f"clust.{t}"),
+                                       prev, "", {})
+    names = ["pop", "nn"] + [f"clust.{t}" for t in THRESHOLDS]
+    for name in names:
+        lines = []
+        for where in (d, ref):
+            with open(os.path.join(where, name)) as fh:
+                lines.append([ln for ln in fh if not ln.startswith("#")])
+        if lines[0] != lines[1]:
+            fail(f"phase 5's {name} differs from the pipeline before it")
+    print(f"[main] {', '.join(names)}: data lines byte-identical to"
+          " populations, block-bound NN without prefetch and the screener"
+          " built after NN on the same coordinates")
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -977,8 +1134,13 @@ def phase_main_path_kernels(torch, calls, launches, smi):
                       in zip(rec, got)) / PEAK_BYTES * 1e3
         bound = max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
+        per_call = ""
+        if name in ("nn_bidir", "nn_sparse"):
+            # the band pass, then phase 2 (tiered or block-bound)
+            per_call = " tiles " + "/".join(str(len(args[-4]))
+                                            for args, _ in rec) + ","
         print(f"[path kernels] {name}: {launches[name]} launches"
-              f" ({len(rec)} calls), {pairs} pairs,"
+              f" ({len(rec)} calls),{per_call} {pairs} pairs,"
               f" kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound"
               f" {bound:.3f} ms ({by}), share {bound / ms:.3f}; 0"
               " mismatches")
@@ -1237,7 +1399,10 @@ def phase_big_n(torch):
     check_outputs("big N", N_BIG, pops, fe, np.stack([nn[0], nn[2]], 1),
                   np.stack([nn[1], nn[3]], 1), clust[-1])
     sampled_check(torch, coords, pops, fe, nn, clust[-1], keep["md2"])
-    plan_check(torch, f"N={N_BIG}", nn=nn, **keep)
+    print(f"[big N] screener built during NN in {keep['screener_build']:.3f}s")
+    tier_check(torch, f"N={N_BIG}", keep, nn, stats, walls)
+    plan_check(torch, f"N={N_BIG}", keep["engine"], keep["series"],
+               keep["md2"], nn)
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -1256,6 +1421,7 @@ def mesh_rank(rank, world, store, bidir, out):
     import torch
     import torch.distributed as dist
     from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.engine import DensityEngine
     from clustering_tpu_torch.parallel import mesh as pmesh
     pmesh.initialize("cuda:0", backend="gloo", init_method="file://" + store,
                      world_size=world, rank=rank)
@@ -1280,12 +1446,16 @@ def mesh_rank(rank, world, store, bidir, out):
         for _ in ("cold", "warm"):
             stats = {}
             reduce.append({"calls": 0, "seconds": 0.0, "bytes": 0})
+            # phase 6's tier_qs: a mesh keeps the row-side route block-bound
+            qs = "auto" if bidir else DensityEngine.TIER_QS_DEFAULT
             with bidir_switches(bidir):
                 kernels.reset_launches()
-                runs.append(run_engines(torch, coords, stats, mesh=mesh))
+                runs.append(run_engines(torch, coords, stats, mesh=mesh,
+                                        tier_qs=qs))
         same_results(runs[0], runs[1], f"rank {rank}'s cold and warm runs")
         pops, nn, clust, _, modes = runs[1]
         meta = {"walls": [run[3] for run in runs], "modes": modes,
+                "nn_mode": stats["nearest neighbors"]["mode"],
                 "reduce": reduce, "launches": dict(kernels.LAUNCHES),
                 "shares": stage_tiles(stats, share=True)}
         np.savez(out, pops=pops, nn_ids=np.stack([nn[0], nn[2]]),
@@ -1341,6 +1511,10 @@ def phase_mesh(torch, runs, tmp, smi):
         route = "bidir" if bidir else "symmetric"
         pops, nn, clust, _, _, _, stats = runs[route]
         want_tiles = stage_tiles(stats)
+        # the bidirectional list tiers as on one rank; the row-side route
+        # sweeps block-bound on a mesh
+        want_nn = stats["nearest neighbors" if bidir else "nn block-bound"]
+        want_tiles["nn phase 2"] = want_nn["phase2_tiles"]
         ranks, wall = spawn_ranks(torch, world, bidir, tmp)
         tag = f"[mesh] {world} gloo ranks on cuda:0, {route}"
         print(f"{tag}: {smi}; N={N_MAIN} D={DIM}, {wall:.3f}s from spawn to"
@@ -1357,6 +1531,9 @@ def phase_mesh(torch, runs, tmp, smi):
             if set(meta["modes"].values()) != {route + "-mesh"}:
                 fail(f"{tag}: rank {rank} took another route:"
                      f" {meta['modes']}")
+            if meta["nn_mode"] != want_nn["mode"]:
+                fail(f"{tag}: rank {rank}'s NN phase 2 was"
+                     f" {meta['nn_mode']}, not {want_nn['mode']}")
             same_results(
                 (got["pops"], (got["nn_ids"][0], got["nn_d2"][0],
                                got["nn_ids"][1], got["nn_d2"][1]),
@@ -1382,8 +1559,8 @@ def phase_mesh(torch, runs, tmp, smi):
                      f" {total} tiles")
         print(f"{tag}: populations, nn ids, nn distances (bit for bit) and"
               f" {len(THRESHOLDS)} clusterings identical to phase 6 on every"
-              " rank; shares sum to phase 6's tiles "
-              + json.dumps(want_tiles))
+              f" rank; NN phase 2 {want_nn['mode']}; shares sum to phase"
+              " 6's tiles " + json.dumps(want_tiles))
     phase_nccl_cli(tmp)
 
 
@@ -1455,15 +1632,24 @@ def phase_nccl_cli(tmp):
 
 
 def main():
+    t_start = time.perf_counter()
+
+    def lap(phases):
+        print(f"[time] phases {phases} done at"
+              f" {time.perf_counter() - t_start:.1f}s", flush=True)
+
     torch, smi = phase_device()
     phase_build()
     phase_kernels(torch)
+    lap("1-3")
     with tempfile.TemporaryDirectory() as tmp:
         phase_slice(tmp)
         with record_calls(BIDIR_KERNELS) as calls:
             launches = phase_main(torch, tmp)
+        cli_files_check(torch, tmp)
+        lap("4-5")
         with record_calls(SPARSE_KERNELS) as sym_calls:
-            runs = phase_symmetric(torch)
+            runs = phase_symmetric(torch, sym_calls)
         calls.update(sym_calls)
         for name in SPARSE_KERNELS:
             launches[name] = runs["symmetric"][5][name]
@@ -1472,11 +1658,15 @@ def main():
         calls.update(tiles_calls)
         for name in TILES_KERNELS:
             launches[name] = tiles_launches[name]
+        lap("6-7")
         record = {"kernels": phase_main_path_kernels(torch, calls, launches,
                                                      smi)}
         del calls, sym_calls, tiles_calls
+        lap("8")
         phase_big_n(torch)
+        lap("9")
         phase_mesh(torch, runs, tmp, smi)
+        lap("10")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,7 +15,10 @@
 
 All functions take and return numpy arrays. The last five run on the host
 (the port's own copies of the JAX package's host models) and take no
-device.
+device. The device stages take the JAX package's ``mesh=``: a
+``parallel.make_mesh()`` over the ranks of an initialised process group,
+each calling with the same arguments and getting the whole result; the
+device then defaults to the mesh's.
 """
 
 from collections import namedtuple
@@ -38,13 +41,20 @@ MppResult = namedtuple(
     "MppResult", ["trajectories", "transitions", "qmin_values"])
 
 
-def populations(coords, radius, device="cuda"):
+def _device(device, mesh):
+    """``device``, else the mesh's, else "cuda"."""
+    if device is not None:
+        return device
+    return "cuda" if mesh is None else mesh.device
+
+
+def populations(coords, radius, device=None, mesh=None):
     """Per-frame neighbour counts inside the hypersphere ``radius``
     (self-inclusive); an array for a scalar radius, else a dict radius ->
     array."""
     radii = np.atleast_1d(np.asarray(radius, dtype=float)).tolist()
     out = dops.populations(np.asarray(coords, np.float32), radii,
-                           device=device)
+                           device=_device(device, mesh), mesh=mesh)
     if np.ndim(radius) == 0:
         return out[radii[0]]
     return out
@@ -55,15 +65,16 @@ def free_energies(pops):
     return dops.free_energies(pops)
 
 
-def nearest_neighbors(coords, free_energy, device="cuda") -> Neighborhoods:
+def nearest_neighbors(coords, free_energy, device=None,
+                      mesh=None) -> Neighborhoods:
     """Joint nearest-neighbour and nearest-lower-free-energy search."""
     return Neighborhoods(*nops.nearest_neighbors(
         np.asarray(coords, np.float32), np.asarray(free_energy, np.float32),
-        device=device))
+        device=_device(device, mesh), mesh=mesh))
 
 
 def screening_series(coords, free_energy, nh_dist, thresholds,
-                     device="cuda", hd_neighbors=None):
+                     device=None, hd_neighbors=None, mesh=None):
     """Density screening over a free-energy threshold series: one state
     trajectory per threshold (ids 1..K, 0 above it), seeded
     incrementally. ``hd_neighbors=(nn.nhhd_idx, nn.nhhd_dist)`` seeds new
@@ -72,7 +83,8 @@ def screening_series(coords, free_energy, nh_dist, thresholds,
     max_dist2 = np.float32(4.0 * nops.compute_sigma2(nh_dist))
     series = ThresholdSeriesScreener(
         np.asarray(coords, np.float32), np.asarray(free_energy, np.float32),
-        thresholds, device=device, hd_neighbors=hd_neighbors)
+        thresholds, device=_device(device, mesh), hd_neighbors=hd_neighbors,
+        mesh=mesh)
     with ThreadPoolExecutor(max_workers=2) as pool:
         futs = [series.step_submit(k, max_dist2, pool)
                 for k in range(len(thresholds))]

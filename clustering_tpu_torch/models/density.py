@@ -7,12 +7,19 @@ stages on the engines of :mod:`clustering_tpu_torch.ops`. The pure-numpy
 helpers are copies of the JAX module's: it imports its ``ops`` package and
 through it jax.
 
-In a distributed run (the CLI has joined a process group,
-``parallel.mesh.initialize``) every stage is dealt over the group's ranks
-and every rank writes the same files in its own working directory.
+When nearest neighbours follow populations, populations starts the NN
+band pass (``nn_band_radius``) and the screening series' screener is
+built on the write pool while NN runs, its lower-fe edges attached after
+it, as in the JAX CLI; in a distributed run (the CLI has joined a process
+group, ``parallel.mesh.initialize``) both stay on the main thread, every
+stage is dealt over the group's ranks and every rank writes the same
+files in its own working directory. ``CLUSTERING_TPU_PROFILE_SUBSTAGES``
+adds each device stage's sub-stage times to the ``-v`` log.
 """
 
+import os
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -134,6 +141,27 @@ def _check_backends(coords, kind, got, radii=None, fe=None, device="cpu"):
              f" {frac:.2%} of entries disagree between backends")
 
 
+def _log_substages(engine, stage_key):
+    """Verbose sub-stage walls (``t_plan``, ``t_band``, ``t_sweep`` ...)
+    of the engine's last ``stage_key`` stage, when
+    CLUSTERING_TPU_PROFILE_SUBSTAGES is set."""
+    if not os.environ.get("CLUSTERING_TPU_PROFILE_SUBSTAGES"):
+        return
+    st = engine.last_stats.get(stage_key, {})
+    parts = ", ".join(f"{k}={v:.3f}" for k, v in st.items()
+                      if isinstance(v, float) and k.startswith("t_"))
+    if parts:
+        logger(f"      [{stage_key} substages: {parts}]")
+
+
+def _build_screener(coords, free_energy, thresholds, device):
+    """(the series screener without lower-fe edges, its build seconds)."""
+    t0 = time.perf_counter()
+    series = ThresholdSeriesScreener(coords, free_energy, thresholds,
+                                     device=device)
+    return series, time.perf_counter() - t0
+
+
 def main(args, header_comment, comments_map, device):
     """density mode on ``device``, over the ranks of the process group
     when one is initialised."""
@@ -141,9 +169,11 @@ def main(args, header_comment, comments_map, device):
     mesh = make_mesh(device) if dist.is_initialized() else None
     engine = DensityEngine(coords, device=device, mesh=mesh)
     free_energy = None
-    # the pops / fe / nn files are written on a worker thread while the
-    # next stage computes; every write is joined before the end
-    write_pool = ThreadPoolExecutor(max_workers=2)
+    # the pops / fe / nn files are written on worker threads while the
+    # next stage computes, and the screener is built beside the NN stage
+    # (a third worker, so that it does not queue behind the two writes);
+    # every write is joined before the end
+    write_pool = ThreadPoolExecutor(max_workers=3)
     deferred_writes = []
 
     def _defer_write(fn, path, data):
@@ -154,11 +184,12 @@ def main(args, header_comment, comments_map, device):
     try:
         free_energy = _free_energy_stage(args, engine, comments_map,
                                          _defer_write)
-        nh = _nn_stage(args, engine, free_energy, comments_map,
-                       header_comment, write_pool, deferred_writes)
+        nh, series_fut = _nn_stage(args, engine, free_energy, comments_map,
+                                   header_comment, write_pool,
+                                   deferred_writes)
         if args.output:
             _cluster_stage(args, coords, free_energy, nh, comments_map,
-                           header_comment, device, mesh)
+                           header_comment, device, mesh, series_fut)
         for fut in deferred_writes:
             fut.result()
     finally:
@@ -193,6 +224,7 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
         logger("    using radii: " + ", ".join(str(r) for r in radii))
         with stage_timer("populations"):
             pops_map = engine.populations(radii)
+        _log_substages(engine, "populations")
         if args.check:
             _check_backends(engine.coords, "pops", pops_map, radii=radii,
                             device=engine.device)
@@ -211,7 +243,7 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
     if args.radius is None:
         # no radius: the lumping radius from NN statistics
         logger("    computing lumping radius")
-        pops = engine.populations([1.0])[1.0]
+        pops = engine.populations([1.0], nn_band_radius=1.0)[1.0]
         _, nh_dist, _, _ = engine.nearest_neighbors(dops.free_energies(pops))
         sigma2 = nops.compute_sigma2(nh_dist)
         radius_lump = float(np.sqrt(np.float32(4.0 * sigma2)))
@@ -223,8 +255,15 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
     logger("    calculating free energy and population")
     logger("    using radius: " + io.fmt_float(radius))
     comments_map["clustering_radius"] = radius
+    # when the NN stage follows, populations starts its band pass from
+    # these counts
+    will_run_nn = (not args.nearest_neighbors_input
+                   and (args.nearest_neighbors or args.output)
+                   and not args.input)
     with stage_timer("populations"):
-        pops = engine.populations([radius])[radius]
+        pops = engine.populations(
+            [radius], nn_band_radius=radius if will_run_nn else None)[radius]
+    _log_substages(engine, "populations")
     if args.check:
         _check_backends(engine.coords, "pops", {radius: pops},
                         radii=[radius], device=engine.device)
@@ -240,15 +279,17 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
 
 def _nn_stage(args, engine, free_energy, comments_map, header_comment,
               write_pool, deferred_writes):
+    """(the neighbourhoods, the Future of the screener built meanwhile or
+    None)."""
     logger("\n~~~ nearest neighbors")
     if args.nearest_neighbors_input:
         logger("    re-using nearest neighbor: "
                + args.nearest_neighbors_input)
         nh = io.read_neighborhood(args.nearest_neighbors_input)
         io.read_comments(args.nearest_neighbors_input, comments_map)
-        return nh
+        return nh, None
     if not (args.nearest_neighbors or args.output):
-        return None
+        return None, None
     if args.radii:
         _die("error: nearest neighbor calculation cannot be done with\n"
              "       several radii (-R is set).")
@@ -256,8 +297,24 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
         _die("error: nearest-neighbor search requires free energies"
              " (-d/-p/-o or -D).")
     logger("    calculating nearest neighbors")
+    # the screener depends on (coords, fe, thresholds) alone: build it on
+    # the write pool while NN runs (on a mesh, uploads from a worker
+    # thread could race the collectives: the screening stage builds it)
+    series_fut = None
+    if (engine.mesh is None and args.output
+            and args.threshold_screening is not None and not args.input):
+        try:
+            thresholds = _parse_threshold_series(
+                list(args.threshold_screening), free_energy)[3]
+        except ValueError:
+            thresholds = None  # the screening stage reports it
+        if thresholds is not None:
+            series_fut = write_pool.submit(_build_screener, engine.coords,
+                                           free_energy, thresholds,
+                                           engine.device)
     with stage_timer("nearest neighbors"):
         nh = engine.nearest_neighbors(free_energy)
+    _log_substages(engine, "nn")
     if args.check:
         _check_backends(engine.coords, "nn", nh, fe=free_energy,
                         device=engine.device)
@@ -272,11 +329,11 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
             io.write_neighborhood, args.nearest_neighbors,
             nh[0], nh[1], nh[2], nh[3],
             io.append_comments_map(header_comment, comments_map)))
-    return nh
+    return nh, series_fut
 
 
 def _cluster_stage(args, coords, free_energy, nh, comments_map,
-                   header_comment, device, mesh):
+                   header_comment, device, mesh, series_fut=None):
     if args.radii:
         _die("error: output needs to depend on single radius\n"
              "       but several radii (-R) are set.")
@@ -311,10 +368,17 @@ def _cluster_stage(args, coords, free_energy, nh, comments_map,
     sigma2 = nops.compute_sigma2(nh[1])
     max_dist2 = np.float32(4.0 * sigma2)
     with stage_timer("screening setup"):
-        series = ThresholdSeriesScreener(coords, free_energy, thresholds,
-                                         device=device,
-                                         hd_neighbors=(nh[2], nh[3]),
-                                         mesh=mesh)
+        if series_fut is None:
+            series = ThresholdSeriesScreener(coords, free_energy, thresholds,
+                                             device=device,
+                                             hd_neighbors=(nh[2], nh[3]),
+                                             mesh=mesh)
+        else:
+            series, t_build = series_fut.result()
+            series.set_hd_neighbors((nh[2], nh[3]))
+    if series_fut is not None:
+        logger(f"    [screener built during nearest neighbors in"
+               f" {t_build:.3f}s]")
     # each step's label download + naming and its file write overlap the
     # next threshold's sweeps
     with ThreadPoolExecutor(max_workers=2) as post_pool, \

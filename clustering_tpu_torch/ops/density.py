@@ -16,11 +16,12 @@ from .pairwise import sq_dists
 
 
 def populations(coords, radii, row_block=DEFAULT_ROW_BLOCK,
-                col_block=DEFAULT_COL_BLOCK, device="cuda"):
+                col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
     """Neighbour populations for each radius: dict radius -> (N,) int64
-    (self included), through :class:`DensityEngine` on ``device``."""
+    (self included), through :class:`DensityEngine` on ``device``, over
+    the ranks of ``mesh`` if given."""
     engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
-                           device=device)
+                           device=device, mesh=mesh)
     return engine.populations(radii)
 
 

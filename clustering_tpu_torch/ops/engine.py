@@ -18,6 +18,7 @@ the JAX engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``).
 """
 
 import os
+import threading
 import time
 
 import numpy as np
@@ -53,6 +54,89 @@ def resolve_device(device):
     return device
 
 
+# -- ub-quantile tiers of the NN phase 2 (the JAX engine's helpers) ----------
+
+def _ub_tiers(stacked_d, n, qs):
+    """Per-frame tier from the band pass's (2, N_pad) [nh; hd] distances,
+    entries below ``n`` real: tier k holds the frames whose bound ub =
+    max(nh, hd) lies in (tau_{k-1}, tau_k], frames above the last tau or
+    without a band neighbour the last tier. The taus approach the ``qs``
+    quantiles of the finite bounds by 24 rounds of fp32 bisection, each
+    the upper end of its bracket. Any non-decreasing taus keep phase 2
+    exact (a row block's bound, its largest tier's tau, dominates every
+    member's ub); the quantiles only balance the tiers. Returns (tier
+    int64 (N_pad,), taus float32 (len(qs),)), the JAX engine's bit for
+    bit."""
+    ub = torch.maximum(stacked_d[0], stacked_d[1])
+    dev = ub.device
+    real = (torch.arange(ub.shape[0], device=dev) < n) & torch.isfinite(ub)
+    inf = torch.tensor(float("inf"), device=dev)
+    vals = torch.where(real, ub, inf)
+    m = real.sum().to(torch.float32)
+    # all bounds infinite: finite taus, every frame in the last tier
+    zero = torch.zeros((), device=dev)
+    lo = torch.where(m > 0, vals.min(), zero)
+    hi = torch.where(m > 0, torch.where(real, ub, -inf).max(), zero)
+    q = torch.tensor(qs, dtype=torch.float32, device=dev)
+    target = q * torch.clamp(m - 1.0, min=0.0) + 1.0
+    los, his = lo.repeat(len(qs)), hi.repeat(len(qs))
+    for _ in range(24):
+        mid = (los + his) * 0.5
+        cnt = (vals[None, :] <= mid[:, None]).sum(dim=1).to(torch.float32)
+        go_hi = cnt < target
+        los = torch.where(go_hi, mid, los)
+        his = torch.where(go_hi, his, mid)
+    return torch.searchsorted(his, ub, side="left"), his
+
+
+def _tier_sort_perm(tier, oid_w, n, n_tiers):
+    """The tier of each position of a layout whose original ids are
+    ``oid_w`` (pads: ``n_tiers``), and its stable argsort: the (tier,
+    position) order, pads last."""
+    real = torch.arange(oid_w.shape[0], device=oid_w.device) < n
+    tier_w = torch.where(real, tier[torch.where(real, oid_w.long(), 0)],
+                         n_tiers)
+    return tier_w, torch.argsort(tier_w, stable=True)
+
+
+def _tiered_rows(coords_t, fe_w, oid_w, tier_w, taus, perm, row_block,
+                 n_tiers):
+    """Rows re-sorted by ``perm`` and each row block's bound: the tau of
+    its largest tier (+inf for the last), none for a block of pads."""
+    tiers_p = tier_w[perm].reshape(-1, row_block)
+    bounds = torch.cat([taus, taus.new_full((1,), float("inf"))])
+    bound = bounds[tiers_p.amax(dim=1).clamp(max=n_tiers - 1)]
+    bound = torch.where(tiers_p.amin(dim=1) < n_tiers, bound,
+                        bound.new_full((), float("-inf")))
+    return (coords_t[:, perm].contiguous(), fe_w[perm].contiguous(),
+            oid_w[perm].contiguous(), bound)
+
+
+def _tiered_layout_sym(coords_t, fe_w, oid_w, tier_w, taus, perm, row_block,
+                       col_block, n_tiers):
+    """The bidirectional tiered phase 2's layout: every frame re-sorted by
+    (tier, position), rows and columns alike, so that the upper-triangular
+    sweep composes with the tier bounds. Returns the permuted (coords_t,
+    fe, oid) and the active mask (bbox distance within the row block's
+    bound) on the device; the caller closes it (``bidir_closure``)."""
+    rows_t, fe_r, oid_r, bound = _tiered_rows(
+        coords_t, fe_w, oid_w, tier_w, taus, perm, row_block, n_tiers)
+    active = pruning.bbox_d2(rows_t, row_block, col_block) <= bound[:, None]
+    return rows_t, fe_r, oid_r, active
+
+
+def _tiered_layout(coords_t, fe_w, oid_w, tier_w, taus, perm, row_block,
+                   col_block, n_tiers):
+    """The row-side tiered phase 2's layout: rows re-sorted by (tier,
+    position) against the columns of the layout ``coords_t``. Returns the
+    permuted rows' (coords_t, fe, oid) and the active mask on the
+    device."""
+    rows_t, fe_r, oid_r, bound = _tiered_rows(
+        coords_t, fe_w, oid_w, tier_w, taus, perm, row_block, n_tiers)
+    d2b = pruning.bbox_d2(rows_t, row_block, col_block, cols_t=coords_t)
+    return rows_t, fe_r, oid_r, d2b <= bound[:, None]
+
+
 class DensityEngine:
     """Populations and nearest neighbours of one frame matrix on ``device``.
 
@@ -69,10 +153,15 @@ class DensityEngine:
     off; the CUDA kernels fold through global atomics and have no such
     limit.
 
+    Nearest neighbours sweep phase 2 ub-quantile tiered or block-bound
+    (``nearest_neighbors(tier_qs=...)``), and may start from a band pass
+    that ``populations(nn_band_radius=...)`` began.
+
     With a ``mesh`` (``parallel.mesh.Mesh``) each rank sweeps its share of
     every tile list on ``device`` and the results merge over the ranks;
-    ``last_stats`` then says ``mode`` "bidir-mesh" or "symmetric-mesh",
-    with ``mesh_devices`` and this rank's ``per_device_tiles``."""
+    ``last_stats`` then says ``mode`` (NN: ``route``) "bidir-mesh" or
+    "symmetric-mesh", with ``mesh_devices`` and this rank's
+    ``per_device_tiles``."""
 
     POPS_BIDIR = True
     NN_BIDIR = True
@@ -90,6 +179,10 @@ class DensityEngine:
         self._orders = {}   # name -> (order or None, padded host (N_pad, D))
         self._dev = {}      # cached device tensors
         self.last_stats = {}
+        # the NN band pass started by populations(nn_band_radius=...)
+        self._band_prefetch = None
+        self._band_prefetch_error = None
+        self._band_prefetch_thread = None
 
     # -- cached layouts ------------------------------------------------------
 
@@ -157,12 +250,13 @@ class DensityEngine:
                             for name in ("dim0", "morton")]).tolist()
         return "morton" if skip[1] > skip[0] else "dim0"
 
-    def _stats(self, bidir, plan):
-        """A stage's ``last_stats`` start: its mode, planner and mesh."""
-        mode = "bidir" if bidir else "symmetric"
+    def _stats(self, bidir, plan, key="mode"):
+        """A stage's ``last_stats`` start: its route under ``key``, its
+        planner and mesh."""
+        route = "bidir" if bidir else "symmetric"
         if self.mesh is None:
-            return {"mode": mode, "plan": plan}
-        return {"mode": mode + "-mesh", "plan": plan,
+            return {key: route, "plan": plan}
+        return {key: route + "-mesh", "plan": plan,
                 "mesh_devices": self.mesh.size}
 
     def _share(self, tiles):
@@ -173,12 +267,12 @@ class DensityEngine:
         return pruning.split_tiles_balanced(tiles, self.mesh.rank,
                                             self.mesh.size)
 
-    def _log_stats(self, stage, tiles):
+    def _log_stats(self, stage, tiles, what=""):
         if is_verbose():
             frac = (tiles * float(self.row_block * self.col_block)
                     / (float(self.n) * self.n))
             logger(f"    [{stage}: {tiles} tiles computed = {frac:.1%} of"
-                   " N^2 incl. padding]")
+                   f" N^2 incl. padding{what}]")
 
     # -- populations -----------------------------------------------------------
 
@@ -216,11 +310,18 @@ class DensityEngine:
             rmask |= planes[1 + r_idx][ti, tj].astype(np.int32) << r_idx
         return (name,) + tuple(map(self._put, (ti, tj, rmask)))
 
-    def populations(self, radii):
+    def populations(self, radii, nn_band_radius=None):
         """dict radius -> (N,) int64 populations (self included); the
         sweep's mode ("bidir" or "symmetric") and planner ("device" or
         "host") are in ``last_stats["populations"]``, with ``t_plan`` and
-        the part of it that chose the layout, ``t_best_sort``."""
+        the part of it that chose the layout, ``t_best_sort``.
+
+        ``nn_band_radius``, one of ``radii``, starts the NN band pass from
+        that radius's counts before returning (without a mesh), so that it
+        runs while the caller unsorts and writes the counts; the next
+        :meth:`nearest_neighbors` takes it if its free energies are those
+        of these counts (``ops.density.free_energies``), bit for bit
+        (``last_stats["populations"]["nn_band_prefetch"]``)."""
         t0 = time.perf_counter()
         radii = list(radii)
         bidir = self.POPS_BIDIR
@@ -249,7 +350,16 @@ class DensityEngine:
         counts = counts[:, :self.n]
         if bidir:
             counts = counts + 1  # each frame's self count, once
+        counts_band = None
+        if (nn_band_radius is not None and nn_band_radius in radii
+                and self.mesh is None
+                and self.n_pad // self.col_block > 2 * NN_BAND_BLOCKS):
+            counts_band = self._relayout(counts[radii.index(nn_band_radius)],
+                                         name, NN_BAND_ORDER)
         counts = counts.cpu().numpy()
+        if counts_band is not None:
+            self._start_band_prefetch(counts_band)
+            stats["nn_band_prefetch"] = True
         stats["t_sweep"] = time.perf_counter() - t0
         self.last_stats["populations"] = stats
         order, _ = self._padded(name)
@@ -258,6 +368,14 @@ class DensityEngine:
         return {r: unsorted[i].astype(np.int64) for i, r in enumerate(radii)}
 
     # -- nearest neighbours ----------------------------------------------------
+
+    # the tiered phase 2 (the JAX engine's constants): "auto" plans it from
+    # TIERED_MIN_FRAMES frames when a typical 3.5x cut of the block-bound
+    # list would save more than TIERED_MIN_SAVED_PAIRS pairs, and takes it
+    # when the planned list does
+    TIERED_MIN_SAVED_PAIRS = 6.0e10
+    TIERED_MIN_FRAMES = 1 << 19
+    TIER_QS_DEFAULT = (0.5, 0.9, 0.99)
 
     def _fe_layout(self, fe, name):
         order, _ = self._padded(name)
@@ -268,32 +386,42 @@ class DensityEngine:
     def _nn_bidir_ok(self):
         return self.NN_BIDIR and self.col_block % self.row_block == 0
 
-    def _nn_sweep(self, name, fe, tiles, keys, bidir, stats, stage):
-        """Sweep ``tiles`` (device (ti, tj) or None) in layout ``name`` --
-        an upper-triangular closure swept bidirectionally, or any mask's
-        list swept row-side -- folding into the id-keyed ``keys``; on a
-        mesh, this rank's share, then the keys' MIN over the ranks. Sets
-        ``stats[stage + "_tiles"]`` to the list's length and, on a mesh,
-        ``stats["per_device_tiles"][stage]`` to the share's (both stay 0
-        without a list)."""
+    def _planned(self, stats, fn, *args):
+        """``fn(*args)``, its seconds added to ``stats["t_plan"]``."""
+        t = time.perf_counter()
+        out = fn(*args)
+        stats["t_plan"] += time.perf_counter() - t
+        return out
+
+    def _nn_sweep(self, rows, tiles, keys, bidir, stats, stage, cols=None):
+        """Sweep ``tiles`` (device (ti, tj) or None) -- an upper-triangular
+        closure swept bidirectionally, or any mask's list swept row-side --
+        folding into the id-keyed ``keys``; ``rows`` and ``cols`` are the
+        (coords_t, fe, oid) device tensors of the rows and the columns
+        (``cols`` None: the rows'). On a mesh, this rank's share, then the
+        keys' MIN over the ranks. Sets ``stats[stage + "_tiles"]`` to the
+        list's length and, on a mesh, ``stats["per_device_tiles"][stage]``
+        to the share's (both stay 0 without a list)."""
         if tiles is None:
             return
         stats[stage + "_tiles"] = len(tiles[0])
         ti, tj = self._share(tiles)
         if self.mesh is not None:
             stats["per_device_tiles"][stage] = len(ti)
-        ct, fe_l, oid = (self.coords_t(name), self._fe_layout(fe, name),
-                         self.oid(name))
         if bidir:
-            kernels.nn_bidir(ct, fe_l, oid, self.n, ti, tj, keys,
-                             self.row_block, self.col_block)
+            kernels.nn_bidir(*rows, self.n, ti, tj, keys, self.row_block,
+                             self.col_block)
         else:
-            kernels.nn_sparse(ct, fe_l, oid, ct, fe_l, oid, self.n, ti, tj,
-                              keys, self.row_block, self.col_block)
+            kernels.nn_sparse(*rows, *(cols or rows), self.n, ti, tj, keys,
+                              self.row_block, self.col_block)
         if self.mesh is not None:
             pmin_(keys, self.mesh)
 
-    def nn_band_mask(self, bidir=True):
+    def _nn_rows(self, name, fe_l):
+        """(coords_t, fe, oid) of layout ``name`` on the device."""
+        return self.coords_t(name), fe_l, self.oid(name)
+
+    def nn_band_mask(self, bidir=True, band_blocks=NN_BAND_BLOCKS):
         """The band pass's tile mask and the mask it sweeps: on the device,
         the band and its upper-triangular closure, when ``bidir``; else
         the band on the host (numpy), twice."""
@@ -301,91 +429,250 @@ class DensityEngine:
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
         if bidir:
             band = pruning.band_mask_device(nrb, ncb, rb, cb,
-                                            NN_BAND_BLOCKS * cb, self.device)
+                                            band_blocks * cb, self.device)
             return band, pruning.bidir_closure_device(band, rb, cb)
-        band = pruning.band_mask(nrb, ncb, rb, cb, NN_BAND_BLOCKS * cb)
+        band = pruning.band_mask(nrb, ncb, rb, cb, band_blocks * cb)
         return band, band
 
-    def nearest_neighbors(self, free_energy):
+    def _nn_band(self, fe_l, order_name, band_blocks, bidir, stats):
+        """Phase 1: the band pass in layout ``order_name`` (``fe_l``: its
+        fe on the device), then, from each frame's bound (the larger of its
+        two band distances; on a mesh, of the merged keys, so that every
+        rank plans alike), both orders' phase-2 activity masks, the band's
+        tiles taken out of its own order's. Returns {"keys": the key buffer
+        after the band pass, "acts": the (dim0, morton) masks, "work":
+        their active counts}; masks and counts stay on the device when
+        ``bidir`` (no host sync but the list's count), else on the host.
+        Fills ``stats``' band_tiles and t_plan."""
+        rb = self.row_block
+        nrb = self.n_pad // rb
+        keys = kernels.nn_keys_init(self.n_pad, self.device)
+        band, band_eff = self._planned(stats, self.nn_band_mask, bidir,
+                                       band_blocks)
+        self._nn_sweep(self._nn_rows(order_name, fe_l),
+                       self._planned(stats, self._tiles, band_eff), keys,
+                       bidir, stats, "band")
+        del band_eff
+        d_band, _ = kernels.unpack_keys(keys[:, :self.n])
+        ub_oid = d_band.amax(dim=0)
+        acts = []
+        for name in ("dim0", "morton"):
+            oid = self.oid(name).long()
+            ub = torch.full((self.n_pad,), float("inf"), device=self.device)
+            ub[:self.n] = ub_oid[oid[:self.n]]
+            row_ub = ub.reshape(nrb, rb).amax(dim=1)
+            act = self.d2b(name) <= row_ub[:, None]
+            if not bidir:
+                act = act.cpu().numpy()
+            if name == order_name:
+                act = act & ~band
+            acts.append(act)
+        work = [a.sum() for a in acts]
+        work = torch.stack(work) if bidir else [int(w) for w in work]
+        return {"keys": keys, "acts": acts, "work": work}
+
+    # -- the band prefetch -----------------------------------------------------
+
+    def _relayout(self, values, src, dst):
+        """(N,) ``values`` at the frame positions of layout ``src``,
+        gathered to those of ``dst``, on the device."""
+        by_id = torch.empty_like(values)
+        by_id[self.oid(src)[:self.n].long()] = values
+        return by_id[self.oid(dst)[:self.n].long()]
+
+    def _start_band_prefetch(self, counts_band):
+        """Start the NN band pass from the (N,) device counts
+        ``counts_band`` in the band order: on a thread, download them,
+        compute free energies exactly as ``ops.density.free_energies``
+        does (on the host: a 1-ulp difference of a device log would make
+        every consumer miss), and enqueue phase 1 (:meth:`_nn_band`). The
+        stash, or the exception that ended the thread, waits for
+        :meth:`_take_band_prefetch`."""
+        from .density import free_energies
+        self._take_band_prefetch()  # an unconsumed earlier one is dropped
+        bidir = self._nn_bidir_ok()
+
+        def work():
+            try:
+                fe_band = free_energies(counts_band.cpu().numpy())
+                fe_pad = np.full(self.n_pad, np.inf, dtype=np.float32)
+                fe_pad[:self.n] = fe_band
+                stats = {"band_tiles": 0, "t_plan": 0.0}
+                band = self._nn_band(self._put(fe_pad), NN_BAND_ORDER,
+                                     NN_BAND_BLOCKS, bidir, stats)
+                band.update(fe_band=fe_band, order_name=NN_BAND_ORDER,
+                            band_blocks=NN_BAND_BLOCKS, bidir=bidir,
+                            band_tiles=stats["band_tiles"])
+                self._band_prefetch = band
+            except Exception as exc:  # raised by _take_band_prefetch
+                self._band_prefetch_error = exc
+
+        self._band_prefetch_thread = threading.Thread(target=work,
+                                                      daemon=True)
+        self._band_prefetch_thread.start()
+
+    def _take_band_prefetch(self):
+        """Join the band prefetch's thread and take its stash (None if there
+        is none); an exception that ended the thread is raised here."""
+        if self._band_prefetch_thread is not None:
+            self._band_prefetch_thread.join()
+            self._band_prefetch_thread = None
+        pf, self._band_prefetch = self._band_prefetch, None
+        err, self._band_prefetch_error = self._band_prefetch_error, None
+        if err is not None:
+            raise err
+        return pf
+
+    # -- the tiered phase 2 ----------------------------------------------------
+
+    def _nn_tiered_plan(self, rows, keys, tier_qs, bidir):
+        """Phase 2 re-sorted by (ub-quantile tier, position in the winner
+        layout ``rows`` = (coords_t, fe, oid)), each row block bounded by
+        its largest tier's quantile: far fewer pairs than the block-bound
+        plan when a few frames with distant lower-fe neighbours would
+        widen whole row blocks (the JAX engine's ``_nn_tiered_plan`` and
+        ``_nn_tiered_bidir_plan``). Tiers come from the band pass's
+        distances in ``keys``. Bidirectional: every frame re-sorted, the
+        active mask closed upper-triangularly on the device; row-side: only
+        the rows re-sorted, against the winner's columns, the list planned
+        on the host. Returns (rows, cols, tiles): the sweep's rows, its
+        columns (None: the rows') and its tile list (or None)."""
+        rb, cb = self.row_block, self.col_block
+        n_tiers = len(tier_qs) + 1
+        d_band, _ = kernels.unpack_keys(keys)
+        tier, taus = _ub_tiers(d_band, self.n, tuple(tier_qs))
+        tier_w, perm = _tier_sort_perm(tier, rows[2], self.n, n_tiers)
+        if bidir:
+            *t_rows, active = _tiered_layout_sym(*rows, tier_w, taus, perm,
+                                                 rb, cb, n_tiers)
+            return tuple(t_rows), None, self._tiles(
+                pruning.bidir_closure_device(active, rb, cb))
+        *t_rows, active = _tiered_layout(*rows, tier_w, taus, perm, rb, cb,
+                                         n_tiers)
+        return tuple(t_rows), rows, self._tiles(active.cpu().numpy())
+
+    def _nn_tier_qs(self, tier_qs, block_tiles, bidir):
+        """The quantiles of a tiered plan to try, or None: an explicit
+        tuple always, None never; "auto" the default quantiles from
+        TIERED_MIN_FRAMES frames when a typical 3.5x cut of
+        ``block_tiles`` would save more than TIERED_MIN_SAVED_PAIRS pairs.
+        A mesh keeps the row-side route block-bound (the JAX engine's
+        row-only tiered plan is single-device)."""
+        if tier_qs is None or not (bidir or self.mesh is None):
+            return None
+        if tier_qs != "auto":
+            return tuple(tier_qs)
+        saved = (block_tiles * float(self.row_block * self.col_block)
+                 * (1.0 - 1.0 / 3.5))
+        if (self.n >= self.TIERED_MIN_FRAMES
+                and saved > self.TIERED_MIN_SAVED_PAIRS):
+            return self.TIER_QS_DEFAULT
+        return None
+
+    def nearest_neighbors(self, free_energy, prune=True,
+                          band_blocks=NN_BAND_BLOCKS, order_name=NN_BAND_ORDER,
+                          tier_qs="auto"):
         """Joint NN / lower-fe NN search with two-phase exact pruning:
 
-          1. a band pass over neighbouring positions of the
-             ``NN_BAND_ORDER`` layout bounds both neighbour distances of
-             every frame;
+          1. a band pass over the frames within ``band_blocks`` column
+             blocks of each position of the ``order_name`` layout bounds
+             both neighbour distances of every frame;
           2. the full pass, in whichever of the dim0 and morton layouts
              sweeps less, skips tiles whose bbox distance exceeds the row
              block's bound -- tiles holding the true minima always survive.
 
+        ``tier_qs`` (e.g. (0.5, 0.9, 0.99)) sweeps phase 2 ub-quantile
+        tiered: frames re-sorted by the tier of their bound, each row
+        block bounded by its tier's quantile, so that a few frames with
+        distant lower-fe neighbours stop widening whole row blocks; exact
+        either way. "auto" (the default) plans it only where it can pay
+        (:meth:`_nn_tier_qs`) and takes it when its list saves more than
+        TIERED_MIN_SAVED_PAIRS pairs; None never tiers. ``prune=False``
+        (or too few column blocks for a band) sweeps every tile.
+
         Both passes fold into one buffer keyed by original frame id.
         Distance ties break toward the smaller original id, as in the
-        reference's original-order scan. Returns (nh_idx, nh_d2,
+        reference's original-order scan. A band pass started by
+        ``populations(..., nn_band_radius=r)`` is taken when its free
+        energies are bit-equal to ``free_energy`` and its band, order and
+        route match; otherwise it is dropped. Returns (nh_idx, nh_d2,
         nhhd_idx, nhhd_d2) numpy arrays; absent neighbours are (0, 0.0).
-        ``last_stats["nn"]`` holds the planner ("device" or "host") and
+
+        ``last_stats["nn"]`` holds the route ("bidir", "symmetric",
+        "-mesh" on a mesh), ``bidir``, the planner ("device" or "host"),
+        ``mode`` ("tiered", "block-bound", or "dense" without a band),
+        ``band_prefetched``, ``order``, the tile counts of both passes, and
         three disjoint times: ``t_plan`` (building masks and tile lists),
-        ``t_band`` (the band sweep and the order choice) and ``t_sweep``
-        (phase 2's sweep and the readback); on a mesh, ``per_device_tiles``
-        is this rank's share of each pass, {"band": .., "phase2": ..}."""
+        ``t_band`` (the band sweep, or the wait for its prefetch, and the
+        order choice) and ``t_sweep`` (phase 2's sweep and the readback);
+        on a mesh, ``per_device_tiles`` is this rank's share of each pass,
+        {"band": .., "phase2": ..}."""
         fe = np.asarray(free_energy, dtype=np.float32)
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
         bidir = self._nn_bidir_ok()
-        stats = self._stats(bidir, "device" if bidir else "host")
-        stats.update(band_tiles=0, phase2_tiles=0, t_plan=0.0)
+        stats = self._stats(bidir, "device" if bidir else "host",
+                            key="route")
+        stats.update(bidir=bidir, mode="dense", band_prefetched=False,
+                     band_tiles=0, phase2_tiles=0, t_plan=0.0)
         if self.mesh is not None:
             stats["per_device_tiles"] = {"band": 0, "phase2": 0}
-
-        def planned(fn, *args):
-            t = time.perf_counter()
-            out = fn(*args)
-            stats["t_plan"] += time.perf_counter() - t
-            return out
+        banded = prune and ncb > 2 * band_blocks
 
         t0 = time.perf_counter()
-        keys = kernels.nn_keys_init(self.n_pad, self.device)
-        if ncb > 2 * NN_BAND_BLOCKS:
-            band, band_eff = planned(self.nn_band_mask, bidir)
-            self._nn_sweep(NN_BAND_ORDER, fe, planned(self._tiles, band_eff),
-                           keys, bidir, stats, "band")
-            del band_eff
-            # per-frame bound: the larger of the two band distances (on a
-            # mesh, of the merged keys, so that every rank plans alike)
-            d_band, _ = kernels.unpack_keys(keys[:, :self.n])
-            ub_oid = d_band.amax(dim=0)
-            names, acts = ("dim0", "morton"), []
-            for name in names:
-                oid = self.oid(name).long()
-                ub = torch.full((self.n_pad,), float("inf"),
-                                device=self.device)
-                ub[:self.n] = ub_oid[oid[:self.n]]
-                row_ub = ub.reshape(nrb, rb).amax(dim=1)
-                act = self.d2b(name) <= row_ub[:, None]
-                if not bidir:
-                    act = act.cpu().numpy()
-                if name == NN_BAND_ORDER:
-                    act = act & ~band
-                acts.append(act)
-            del band
-            work = [a.sum() for a in acts]
-            work = (torch.stack(work).tolist() if bidir
-                    else [int(w) for w in work])
+        pf = self._take_band_prefetch()
+        if pf is not None and not (
+                banded and pf["order_name"] == order_name
+                and pf["band_blocks"] == band_blocks
+                and pf["bidir"] == bidir
+                and np.array_equal(pf["fe_band"],
+                                   fe[self._padded(order_name)[0]])):
+            pf = None
+        if banded:
+            if pf is None:
+                band = self._nn_band(self._fe_layout(fe, order_name),
+                                     order_name, band_blocks, bidir, stats)
+            else:
+                band = pf
+                stats.update(band_prefetched=True,
+                             band_tiles=pf["band_tiles"])
+            keys, work = band["keys"], band["work"]
+            work = work.tolist() if bidir else work
             # the smaller work wins, dim0 on ties
             pick = 1 if work[1] < work[0] else 0
-            name, active = names[pick], acts[pick]
-            del acts
+            name, active = ("dim0", "morton")[pick], band["acts"][pick]
+            del band, pf
             stats["order"] = name
             stats["t_band"] = time.perf_counter() - t0 - stats["t_plan"]
         else:
-            # too few column blocks for a band to prune anything
-            name = NN_BAND_ORDER
+            keys = kernels.nn_keys_init(self.n_pad, self.device)
+            name = order_name
             active = (torch.ones((nrb, ncb), dtype=torch.bool,
                                  device=self.device) if bidir
                       else np.ones((nrb, ncb), dtype=bool))
         t0, t_plan0 = time.perf_counter(), stats["t_plan"]
         if bidir:
-            active = planned(pruning.bidir_closure_device, active, rb, cb)
-        tiles = planned(self._tiles, active)
+            active = self._planned(stats, pruning.bidir_closure_device,
+                                   active, rb, cb)
+        tiles = self._planned(stats, self._tiles, active)
         del active
-        self._nn_sweep(name, fe, tiles, keys, bidir, stats, "phase2")
+        rows = self._nn_rows(name, self._fe_layout(fe, name))
+        cols = None
+        if banded:
+            stats["mode"] = "block-bound"
+            block_tiles = 0 if tiles is None else len(tiles[0])
+            qs = self._nn_tier_qs(tier_qs, block_tiles, bidir)
+            if qs is not None:
+                t_rows, t_cols, t_tiles = self._planned(
+                    stats, self._nn_tiered_plan, rows, keys, qs, bidir)
+                est = 0 if t_tiles is None else len(t_tiles[0])
+                saved = (block_tiles - est) * float(rb * cb)
+                if tier_qs != "auto" or saved > self.TIERED_MIN_SAVED_PAIRS:
+                    stats["mode"] = "tiered"
+                    rows, cols, tiles = t_rows, t_cols, t_tiles
+                del t_rows, t_cols, t_tiles
+        self._nn_sweep(rows, tiles, keys, bidir, stats, "phase2", cols=cols)
+        del rows, cols, tiles
         d2, ids = kernels.unpack_keys(keys[:, :self.n])
         absent = ~(d2 < float("inf"))
         ids = torch.where(absent, 0, ids)
@@ -397,5 +684,8 @@ class DensityEngine:
                             - (stats["t_plan"] - t_plan0))
         stats["computed_tiles"] = stats["band_tiles"] + stats["phase2_tiles"]
         self.last_stats["nn"] = stats
-        self._log_stats("nn", stats["computed_tiles"])
+        self._log_stats("nn", stats["computed_tiles"],
+                        f", {stats['mode']} phase 2"
+                        + (", band prefetched" if stats["band_prefetched"]
+                           else ""))
         return ids[0], d2[0], ids[1], d2[1]

@@ -22,11 +22,12 @@ _INF = float("inf")
 
 
 def nearest_neighbors(coords, free_energy, row_block=DEFAULT_ROW_BLOCK,
-                      col_block=DEFAULT_COL_BLOCK, device="cuda"):
+                      col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
     """Returns (nh_idx, nh_d2, nhhd_idx, nhhd_d2) numpy arrays of len N,
-    through :class:`DensityEngine` on ``device``."""
+    through :class:`DensityEngine` on ``device``, over the ranks of
+    ``mesh`` if given."""
     engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
-                           device=device)
+                           device=device, mesh=mesh)
     return engine.nearest_neighbors(free_energy)
 
 

@@ -116,18 +116,20 @@ def bbox_dist2(row_mins, row_maxs, col_mins, col_maxs):
     return out
 
 
-def bbox_d2(coords_t, row_block, col_block):
+def bbox_d2(coords_t, row_block, col_block, cols_t=None):
     """Device counterpart of ``bbox_dist2`` from the (D, N_pad) frame
     matrix: the same per-dimension gap accumulation and downward margin,
-    as plain torch ops on the matrix's device."""
-    n_dim, n_pad = coords_t.shape
+    as plain torch ops on the matrix's device. ``cols_t`` (D, M_pad), if
+    given, supplies the column blocks (rows stay ``coords_t``'s)."""
+    cols_t = coords_t if cols_t is None else cols_t
+    n_dim = coords_t.shape[0]
     rblk = coords_t.reshape(n_dim, -1, row_block)
     rmin, rmax = rblk.amin(dim=2), rblk.amax(dim=2)
-    cblk = coords_t.reshape(n_dim, -1, col_block)
+    cblk = cols_t.reshape(n_dim, -1, col_block)
     cmin, cmax = cblk.amin(dim=2), cblk.amax(dim=2)
     margin = np.float32(1.0 - (n_dim + 8) * 2.0 ** -23)
     big = float(np.float32(np.finfo(np.float32).max) * margin)
-    acc = torch.zeros((n_pad // row_block, n_pad // col_block),
+    acc = torch.zeros((rmin.shape[1], cmin.shape[1]),
                       dtype=torch.float32, device=coords_t.device)
     for k in range(n_dim):
         gap = torch.maximum(rmin[k][:, None] - cmax[k][None, :],

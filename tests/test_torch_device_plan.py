@@ -278,7 +278,7 @@ def test_symmetric_routes_stay_host_planned(blobs, monkeypatch):
     monkeypatch.setattr(tengine.DensityEngine, "NN_BIDIR", False)
     p_sym, nn_sym, st = _port_run(blobs)
     assert st["populations"]["plan"] == st["nn"]["plan"] == "host"
-    assert st["populations"]["mode"] == st["nn"]["mode"] == "symmetric"
+    assert st["populations"]["mode"] == st["nn"]["route"] == "symmetric"
     monkeypatch.undo()
     p_dev, nn_dev, _ = _port_run(blobs)
     for r in p_dev:

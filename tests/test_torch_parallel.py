@@ -38,6 +38,8 @@ RADII = (0.3, 0.6)
 THRESHOLDS = (0.4, 0.9)
 N_BELOW = 120
 TIMEOUT = 240
+# the stats key of each stage's route (NN's "mode" is its phase 2's kind)
+ROUTE_KEY = {"populations": "mode", "nn": "route", "screening": "mode"}
 
 # one rank: argv rank, world (0: the single-rank engines, no mesh),
 # store path, output path, device, n frames, row_block, col_block
@@ -293,11 +295,11 @@ def test_gloo_ranks_match_one_rank_and_jax_mesh(world, runs,
                 shares = [s[part] for s in shares]
             assert sum(shares) == st[0][stage][total] > 0, (route, stage)
             assert max(shares) - min(shares) <= 1, (route, stage, shares)
-            assert st[0][stage]["mode"] == route + "-mesh"
+            assert st[0][stage][ROUTE_KEY[stage]] == route + "-mesh"
             assert st[0][stage]["mesh_devices"] == world
         for stage in ("populations", "nn", "screening"):
             assert "per_device_tiles" not in one["stats"][route][stage]
-            assert one["stats"][route][stage]["mode"] == route
+            assert one["stats"][route][stage][ROUTE_KEY[stage]] == route
 
 
 def test_mesh_adds_the_self_count_once_on_each_route(runs):
@@ -324,6 +326,74 @@ def test_gloo_ranks_share_one_card(tmp_path):
             if key != "stats":
                 np.testing.assert_array_equal(
                     got[key], want, err_msg=f"rank {rank} {key}")
+
+
+# -- the package API on two ranks --------------------------------------------
+
+# one rank of the API run: argv rank, world (0: no mesh), store, output
+_API_WORKER = r"""
+import sys
+import numpy as np
+import torch.distributed as dist
+
+rank, world, store, out = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3],
+                           sys.argv[4])
+import clustering_tpu_torch as ctt
+from clustering_tpu_torch.parallel import mesh as pmesh
+
+rng = np.random.default_rng(21)
+coords = np.concatenate([rng.normal((0.0, 0.0), 0.15, size=(90, 2)),
+                         rng.normal((1.5, 0.4), 0.2, size=(70, 2))])
+kw = {"device": "cpu"}
+reduces = [0]
+if world:
+    pmesh.initialize("cpu", backend="gloo", init_method="file://" + store,
+                     world_size=world, rank=rank)
+    # the JAX package's keyword alone: the device is the mesh's
+    kw = {"mesh": pmesh.make_mesh("cpu")}
+    all_reduce = dist.all_reduce
+
+    def counted(*args, **kwargs):
+        reduces[0] += 1
+        return all_reduce(*args, **kwargs)
+    dist.all_reduce = counted
+pops = ctt.populations(coords, [0.3, 0.6], **kw)
+fe = ctt.free_energies(pops[0.6])
+nn = ctt.nearest_neighbors(coords, fe, **kw)
+clust = ctt.screening_series(coords, fe, nn.nh_dist, [0.4, 0.9],
+                             hd_neighbors=(nn.nhhd_idx, nn.nhhd_dist), **kw)
+np.savez(out, pops3=pops[0.3], pops6=pops[0.6], nh=nn.nh_idx,
+         nhd=nn.nh_dist, hd=nn.nhhd_idx, hdd=nn.nhhd_dist,
+         clust0=clust[0], clust1=clust[1], reduces=reduces[0])
+if world:
+    dist.destroy_process_group()
+"""
+
+
+def test_api_takes_mesh_and_matches_one_rank(tmp_path):
+    """``populations``, ``nearest_neighbors`` and ``screening_series``
+    take the JAX package's ``mesh=``: on two gloo ranks each rank gets the
+    single-rank results bit for bit, through all_reduce merges."""
+    worker = tmp_path / "api_worker.py"
+    worker.write_text(_API_WORKER)
+    runs = {}
+    for world in (0, 2):
+        outs = [tmp_path / f"api{world}_{r}.npz" for r in range(max(world, 1))]
+        _wait([subprocess.Popen(
+            [sys.executable, str(worker), str(r), str(world),
+             str(tmp_path / f"store{world}"), str(out)], env=_env(),
+            cwd=str(tmp_path), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+            for r, out in enumerate(outs)])
+        runs[world] = [dict(np.load(out)) for out in outs]
+    one = runs[0][0]
+    assert int(one.pop("reduces")) == 0
+    assert len(np.unique(one["clust1"])) > 2
+    for rank, got in enumerate(runs[2]):
+        assert int(got.pop("reduces")) > 0, rank
+        for key, want in one.items():
+            np.testing.assert_array_equal(got[key], want,
+                                          err_msg=f"rank {rank} {key}")
 
 
 # -- the CLI on two ranks ----------------------------------------------------

@@ -429,7 +429,7 @@ def test_blocks_that_do_not_divide_match_jax():
     want = je.nearest_neighbors(fe)
     got = te.nearest_neighbors(fe)
     stats = te.last_stats["nn"]
-    assert stats["mode"] == "symmetric" and stats["band_tiles"] > 0
+    assert stats["route"] == "symmetric" and stats["band_tiles"] > 0
     assert not je.last_stats["nn"]["bidir"]
     np.testing.assert_array_equal(got[0], want[0])
     np.testing.assert_array_equal(got[2], want[2])
@@ -481,7 +481,7 @@ def test_symmetric_nn_match_jax_and_bidir(d, dup):
     te = _symmetric_density(coords)
     got = te.nearest_neighbors(fe)
     ts, js = te.last_stats["nn"], je.last_stats["nn"]
-    assert ts["mode"] == "symmetric" and not js["bidir"]
+    assert ts["route"] == "symmetric" and not js["bidir"]
     assert ts["band_tiles"] > 0
     for key in ("order", "band_tiles", "phase2_tiles"):
         assert ts[key] == js[key], key
@@ -491,7 +491,7 @@ def test_symmetric_nn_match_jax_and_bidir(d, dup):
     _assert_ulp_close(got[3], want[3])
     bidir = tengine.DensityEngine(coords, RB, CB, device="cpu")
     got_b = bidir.nearest_neighbors(fe)
-    assert bidir.last_stats["nn"]["mode"] == "bidir"
+    assert bidir.last_stats["nn"]["route"] == "bidir"
     for a, b in zip(got, got_b):
         np.testing.assert_array_equal(a, b)  # distances bit-equal too
 
