@@ -86,6 +86,31 @@ Phases, each printing its own lines; any failure exits non-zero:
      write phase 5's files, byte for byte. It prints rank 0's stage walls,
      each rank's summed all_reduce seconds and its tile shares, and the
      CLI processes' walls.
+ 11. the JAX package's surface and the runtime switches:
+     (a) the density CLI at phase 5's argv in fresh processes with the
+     warms off (``CLUSTERING_TPU_DEVICE_WARM=0``,
+     ``CLUSTERING_TPU_PRECOMPILE=0``), on, on, off: every run writes phase
+     5's files; each prints its populations, NN and screening set-up walls
+     and sub-stages; (b) one more such process under
+     ``CLUSTERING_TPU_PROFILE``: phase 5's files again, and from its
+     Chrome trace the window from the first stage annotation to the last,
+     the device's busy seconds in it (the union of the CUDA kernel, memcpy
+     and memset events), the idle share, in total and per stage, and the
+     5 device ops with the most time; it fails without a CUDA kernel
+     event, or without one of the three bidirectional kernels; (c)
+     ``models.density.screening_step`` over phase 5's thresholds, the
+     order, sorted coordinates and engine reused, ``incremental``, on
+     phase 5's coordinates and neighbour distances (N_MAIN: under a
+     second on the H100, where FE order prunes little): the four
+     clusterings equal phase 5's files; (d) the unpruned route at N =
+     2^16: ``populations(prune=False)`` through ``pops_sparse`` and
+     ``nearest_neighbors(prune=False)`` (switches off) through
+     ``nn_sparse``, equal to the pruned default route, each kernel
+     launched and held against its plain version on those calls (exact);
+     (e) run inside phase 6 on its bidirectional engines:
+     ``precompile_pops``, ``precompile_nn`` and ``series.precompile``
+     launch their stages' kernels, and populations, NN and the series
+     after them equal phase 6's run.
 
 The line before the last holds the kernels' JSON record, from phase 8;
 the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
@@ -799,6 +824,7 @@ def phase_symmetric(torch, calls):
         if on:
             plan_check(torch, f"N={N_MAIN}", keep["engine"], keep["series"],
                        keep["md2"], out[1])
+            warm_check(torch, keep, out)
         del keep
     for mode, (_, _, _, walls, modes, launches, _) in runs.items():
         print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
@@ -870,6 +896,7 @@ def cli_files_check(torch, tmp):
     print(f"[main] {', '.join(names)}: data lines byte-identical to"
           " populations, block-bound NN without prefetch and the screener"
           " built after NN on the same coordinates")
+    return coords, fe, nn
 
 
 # -- phase 7 -------------------------------------------------------------------
@@ -1564,12 +1591,12 @@ def phase_mesh(torch, runs, tmp, smi):
     phase_nccl_cli(tmp)
 
 
-def cli_process(tmp, name, distributed):
+def cli_process(tmp, name, distributed=False, env_extra=None):
     """The density CLI at phase 5's argv on phase 5's coordinates, in a
     process of its own in ``tmp``/``name``, under the distributed switches
-    at world size 1 if ``distributed``; fails unless its files are
-    byte-identical to phase 5's (but for the time stamp). Returns its
-    stdout, its wall and its stage walls."""
+    at world size 1 if ``distributed``, with the variables ``env_extra``;
+    fails unless its files are byte-identical to phase 5's (but for the
+    time stamp). Returns its stdout, its wall and its stage walls."""
     import socket
     import sys
     main_dir, d = os.path.join(tmp, "main"), os.path.join(tmp, name)
@@ -1579,6 +1606,7 @@ def cli_process(tmp, name, distributed):
     env = dict(os.environ,
                PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
     env.pop("CLUSTERING_TORCH_DEVICE", None)
+    env.update(env_extra or {})
     if distributed:
         with socket.socket() as s:
             s.bind(("localhost", 0))
@@ -1631,6 +1659,199 @@ def phase_nccl_cli(tmp):
               f" {json.dumps(walls)}; files byte-identical to phase 5's")
 
 
+# -- phase 11 ------------------------------------------------------------------
+
+COLD_RUNS = (("off", {"CLUSTERING_TPU_DEVICE_WARM": "0",
+                      "CLUSTERING_TPU_PRECOMPILE": "0"}),
+             ("on", {}), ("on", {}),
+             ("off", {"CLUSTERING_TPU_DEVICE_WARM": "0",
+                      "CLUSTERING_TPU_PRECOMPILE": "0"}))
+STAGES = (["populations", "nearest neighbors", "screening setup"]
+          + [f"screening {t}" for t in THRESHOLDS])
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def warm_check(torch, keep, out):
+    """Phase 11 (e), on phase 6's bidirectional engines (``keep``, the run's
+    result ``out``): the three warms launch their stages' kernels, and
+    populations, NN and the series run again after them give phase 6's
+    results."""
+    from clustering_tpu_torch.ops import kernels
+    eng, series, md2 = keep["engine"], keep["series"], keep["md2"]
+    before = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    eng.precompile_pops([RADIUS])
+    eng.precompile_nn()
+    series.precompile(md2)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    launched = {name: kernels.LAUNCHES[name] - before[name]
+                for name in BIDIR_KERNELS}
+    for name, count in launched.items():
+        if count <= 0:
+            fail(f"the warms launched no {name}")
+    pops = eng.populations([RADIUS])[RADIUS]
+    nn = eng.nearest_neighbors(keep["fe"])
+    series.reset()
+    clust, prev = [], None
+    for k in range(len(THRESHOLDS)):
+        prev = series.step(prev, k, md2)
+        clust.append(prev)
+    same_results(out, (pops, nn, clust),
+                 "phase 6's run and its rerun after the warms")
+    print(f"[warms] precompile_pops, precompile_nn and series.precompile on"
+          f" phase 6's engines in {t_warm:.3f}s, launches"
+          f" {json.dumps(launched)}; populations, NN and"
+          f" {len(THRESHOLDS)} clusterings after them identical to phase 6")
+
+
+def phase_cold_cli(tmp):
+    """Phase 11 (a): cold CLI processes, warms off, on, on, off."""
+    for i, (label, env) in enumerate(COLD_RUNS):
+        out, wall, walls = cli_process(tmp, f"cold{i}",
+                                       env_extra=dict(env,
+                                                      **{SUBSTAGES_ENV: "1"}))
+        subs = dict(re.findall(r"\[(\w+) substages: ([^\]]*)\]", out))
+        if ("t_device_warm" in subs.get("populations", "")) != (label == "on"):
+            fail(f"the device warm's seconds do not match warms {label}")
+        print(f"[cold CLI] run {i + 1}, warms {label}: {wall:.3f}s of"
+              f" process; populations {walls['populations']:.3f}s, NN"
+              f" {walls['nearest neighbors']:.3f}s, set-up"
+              f" {walls['screening setup']:.3f}s; substages"
+              f" {json.dumps(subs)}; files byte-identical to phase 5's")
+
+
+def _busy(intervals, lo, hi):
+    """Seconds of the union of sorted (start, end) intervals (us) inside
+    [lo, hi]."""
+    total, reach = 0.0, lo
+    for a, b in intervals:
+        a, b = max(a, reach), min(b, hi)
+        if b > a:
+            total += b - a
+            reach = b
+    return total / 1e6
+
+
+def phase_profile(tmp):
+    """Phase 11 (b): a profiled CLI process; the device's busy time and
+    idle share inside the stages, from its Chrome trace."""
+    from collections import Counter
+    trace_dir = os.path.join(tmp, "profile")
+    _, wall, _ = cli_process(
+        tmp, "profiled", env_extra={"CLUSTERING_TPU_PROFILE": trace_dir})
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans = {e["name"]: e for e in events
+             if e.get("cat") == "user_annotation" and e["name"] in STAGES}
+    if sorted(spans) != sorted(STAGES):
+        fail(f"the trace's stage annotations are {sorted(spans)}")
+    lo = min(e["ts"] for e in spans.values())
+    hi = max(e["ts"] + e["dur"] for e in spans.values())
+    device = [e for e in events if e.get("cat") in DEVICE_EVENTS
+              and e.get("ph") == "X" and lo <= e["ts"] < hi]
+    kernels_seen = {name for name in BIDIR_KERNELS for e in device
+                    if e["cat"] == "kernel" and f"{name}_kernel" in e["name"]}
+    if not any(e["cat"] == "kernel" for e in device):
+        fail("the trace holds no CUDA kernel event inside the stages")
+    if kernels_seen != set(BIDIR_KERNELS):
+        fail(f"the trace shows only {sorted(kernels_seen)} of the"
+             " bidirectional kernels")
+    intervals = sorted((e["ts"], e["ts"] + e["dur"]) for e in device)
+    busy = _busy(intervals, lo, hi)
+    window = (hi - lo) / 1e6
+    per_stage = {name: round(1.0 - _busy(intervals, e["ts"],
+                                         e["ts"] + e["dur"])
+                             / max(e["dur"] / 1e6, 1e-12), 4)
+                 for name, e in spans.items()}
+    ms, count = Counter(), Counter()
+    for e in device:
+        ms[e["name"]] += e["dur"] / 1e3
+        count[e["name"]] += 1
+    top = [{"name": name[:80], "ms": round(t, 3), "count": count[name]}
+           for name, t in ms.most_common(5)]
+    print(f"[profile] {wall:.3f}s of process, files byte-identical to phase"
+          f" 5's; window {window:.3f}s from the first stage annotation to the"
+          f" last, device busy {busy:.3f}s ({len(device)} kernel, memcpy and"
+          f" memset events), idle share {1.0 - busy / window:.4f}")
+    print(f"[profile] idle share per stage {json.dumps(per_stage)}")
+    print(f"[profile] top device ops {json.dumps(top)}")
+
+
+def phase_screening_step(torch, tmp, coords, fe, nn):
+    """Phase 11 (c): ``screening_step`` over phase 5's thresholds on its
+    coordinates, free energies and neighbour distances (from
+    ``cli_files_check``), incremental, the FE order, sorted coordinates and
+    engine reused; the clusterings must equal phase 5's files."""
+    from clustering_tpu_torch.models.density import (screening_step,
+                                                     sorted_fe_order)
+    from clustering_tpu_torch.ops.screening import ScreeningEngine
+    t0 = time.perf_counter()
+    order = sorted_fe_order(fe)
+    cs = coords[order]
+    eng = ScreeningEngine(cs, device="cuda")
+    prev, walls = None, {}
+    for t in THRESHOLDS:
+        t1 = time.perf_counter()
+        prev = screening_step(fe, nn[1], float(t), coords, prev, order=order,
+                              coords_sorted=cs, engine=eng,
+                              incremental=prev is not None)
+        walls[t] = round(time.perf_counter() - t1, 3)
+        want = np.loadtxt(os.path.join(tmp, "main", f"clust.{t}"),
+                          dtype=np.int64)
+        if not np.array_equal(prev, want):
+            fail(f"screening_step at {t} differs from phase 5's clust.{t}")
+    torch.cuda.synchronize()
+    print(f"[screening_step] N={len(fe)}: {time.perf_counter() - t0:.3f}s,"
+          f" steps {json.dumps(walls)} (FE-ordered engine, last step"
+          f" {eng.last_stats['tiles_per_sweep']} tiles/sweep,"
+          f" {eng.last_stats['sweeps']} sweeps); {len(THRESHOLDS)}"
+          " clusterings identical to phase 5's files")
+
+
+def phase_unpruned(torch, smi):
+    """Phase 11 (d): the unpruned route at N_KERNELS against the pruned
+    default route, its two row-side kernels held against their plain
+    versions on the route's own calls."""
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.density import free_energies, populations
+    from clustering_tpu_torch.ops.neighbors import nearest_neighbors
+    coords = synthetic_fel(N_KERNELS, DIM, seed=3)
+    pops = populations(coords, [RADIUS])[RADIUS]
+    fe = free_energies(pops)
+    nn = nearest_neighbors(coords, fe)
+    names = ("pops_sparse", "nn_sparse")
+    with record_calls(names) as calls:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        pops_u = populations(coords, [RADIUS], prune=False)[RADIUS]
+        with bidir_switches(False):
+            nn_u = nearest_neighbors(coords, fe, prune=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: kernels.LAUNCHES[name] for name in names}
+    for name in names:
+        if launches[name] <= 0:
+            fail(f"the unpruned route did not launch {name}")
+    same_results((pops, nn, []), (pops_u, nn_u, []),
+                 "the pruned and unpruned routes")
+    held = {}
+    for name in names:
+        fn = getattr(kernels, name)
+        got, ms = replay(torch, name, fn, calls[name])
+        want, plain_ms = replay(torch, name, getattr(kernels, name + "_plain"),
+                                calls[name])
+        bad, err = compare_outputs(torch, got, want)
+        if bad:
+            fail(f"{name} disagrees with its plain version on the unpruned"
+                 f" route ({bad} elements)")
+        held[name] = {"launches": launches[name], "ms": round(ms, 3),
+                      "plain_ms": round(plain_ms, 3), "max_abs_err": err}
+    print(f"[unpruned] {smi}, N={N_KERNELS}: populations(prune=False) and"
+          f" nearest_neighbors(prune=False) in {wall:.3f}s, equal to the"
+          f" pruned route; kernels against plain versions {json.dumps(held)}")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1646,7 +1867,7 @@ def main():
         phase_slice(tmp)
         with record_calls(BIDIR_KERNELS) as calls:
             launches = phase_main(torch, tmp)
-        cli_files_check(torch, tmp)
+        main_inputs = cli_files_check(torch, tmp)
         lap("4-5")
         with record_calls(SPARSE_KERNELS) as sym_calls:
             runs = phase_symmetric(torch, sym_calls)
@@ -1667,6 +1888,12 @@ def main():
         lap("9")
         phase_mesh(torch, runs, tmp, smi)
         lap("10")
+        phase_cold_cli(tmp)
+        phase_profile(tmp)
+        phase_screening_step(torch, tmp, *main_inputs)
+        del main_inputs
+        phase_unpruned(torch, smi)
+        lap("11")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,11 +14,26 @@ the JAX CLI does: ``CLUSTERING_TPU_DISTRIBUTED=1`` with
 and ``CLUSTERING_TPU_PROCESS_ID`` in each process, or ``torchrun
 --nproc-per-node K -m clustering_tpu_torch density ...``. Each rank then
 computes on its own card (``cuda:LOCAL_RANK % device_count``).
+
+Two runtime switches of the JAX CLI apply to ``density``:
+
+- ``CLUSTERING_TPU_DEVICE_WARM`` (on unless "0", CUDA only): the first
+  device op on a daemon thread while the coordinates are read -- the CUDA
+  context, one small op and its synchronize, and the kernel library's
+  load (built first if needed). Its seconds join the populations
+  sub-stage line (``t_device_warm``, ``CLUSTERING_TPU_PROFILE_SUBSTAGES``).
+- ``CLUSTERING_TPU_PROFILE=<dir>``: the whole run under
+  ``torch.profiler`` (the CPU, and CUDA where it is available), written as
+  a Chrome trace to ``<dir>/trace.json`` (``trace.rank<r>.json`` in a
+  process group) when ``main`` ends, also on an error exit. Each
+  ``stage_timer`` scope shows in it as an annotation of the stage's name.
 """
 
 import argparse
 import os
 import sys
+import threading
+import time
 
 from . import VERSION_STRING
 from .utils import io
@@ -305,6 +320,62 @@ def density_device():
     return resolve_device(os.environ.get(DEVICE_ENV, "cuda"))
 
 
+PROFILE_ENV = "CLUSTERING_TPU_PROFILE"
+
+
+def _start_device_warm(device):
+    """The first device op on a daemon thread (CLUSTERING_TPU_DEVICE_WARM):
+    ``torch.cuda.init()``, one small op and a synchronize, and the kernel
+    library. Returns (the thread, a dict that receives its seconds as
+    ``t_device_warm``). A failure is left to the stages, which meet it
+    again where they need the device."""
+    import torch
+    from .ops import _build
+    times = {}
+
+    def work():
+        t0 = time.perf_counter()
+        try:
+            torch.cuda.init()
+            torch.ones(8, device=device).add_(1)
+            torch.cuda.synchronize(device)
+            _build.library()
+        except Exception:
+            return
+        times["t_device_warm"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=work, daemon=True)
+    thread.start()
+    return thread, times
+
+
+def _start_profile():
+    """The whole-run trace of CLUSTERING_TPU_PROFILE: a started
+    ``torch.profiler.profile`` of the CPU, and of CUDA when available."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir, distributed):
+    """Stop the trace and write it to ``profile_dir`` as a Chrome trace,
+    named by the rank in a process group."""
+    prof.stop()
+    name = "trace.json"
+    if distributed:
+        import torch.distributed as dist
+        name = f"trace.rank{dist.get_rank()}.json"
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, name)
+    prof.export_chrome_trace(path)
+    logger(f"~~~ profile trace written to {path}")
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
@@ -317,14 +388,19 @@ def main(argv=None):
     if getattr(args, "nthreads", 0) and args.nthreads > 0:
         _limit_host_threads(args.nthreads)
     distributed = False
+    profile_dir = None
     if args.mode == "density":
         from .parallel import mesh
         if mesh.requested():
             mesh.initialize(os.environ.get(DEVICE_ENV, "cuda"))
             distributed = True
+        profile_dir = os.environ.get(PROFILE_ENV)
+    prof = _start_profile() if profile_dir else None
     try:
         return _run(args, argv, distributed)
     finally:
+        if prof is not None:
+            _stop_profile(prof, profile_dir, distributed)
         if distributed:
             import torch.distributed
             torch.distributed.destroy_process_group()
@@ -332,6 +408,10 @@ def main(argv=None):
 
 def _run(args, argv, distributed):
     device = density_device() if args.mode == "density" else None
+    warm = None
+    if (device is not None and device.type == "cuda"
+            and os.environ.get("CLUSTERING_TPU_DEVICE_WARM") != "0"):
+        warm = _start_device_warm(device)
 
     verbose = args.mode == "stats" or getattr(args, "verbose", False)
     set_verbose(verbose)
@@ -350,7 +430,8 @@ def _run(args, argv, distributed):
     try:
         if args.mode == "density":
             from .models import density
-            density.main(args, header, comments_map, device)
+            density.main(args, header, comments_map, device,
+                         None if warm is None else warm[1])
         elif args.mode == "mpp":
             from .models import mpp
             mpp.main(args, header, comments_map)
@@ -378,6 +459,9 @@ def _run(args, argv, distributed):
             raise
         print(f"error: {exc}", file=sys.stderr)
         return 1
+    finally:
+        if warm is not None:
+            warm[0].join()
     return 0
 
 

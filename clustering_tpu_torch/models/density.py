@@ -15,10 +15,20 @@ group, ``parallel.mesh.initialize``) both stay on the main thread, every
 stage is dealt over the group's ranks and every rank writes the same
 files in its own working directory. ``CLUSTERING_TPU_PROFILE_SUBSTAGES``
 adds each device stage's sub-stage times to the ``-v`` log.
+
+On a CUDA device without a mesh, daemon threads pay each stage's
+first-use costs ahead of it, where the JAX CLI warms its compiles: the
+engine's ``precompile_pops`` and ``precompile_nn`` once the engine
+exists, the screener's ``precompile`` during NN from the band pass's
+sigma^2 estimate (``CLUSTERING_TPU_EARLY_SCREEN_WARM=0`` turns that one
+off) and after NN at the real linking distance.
+``CLUSTERING_TPU_PRECOMPILE=0`` turns them all off. The warms run on
+scratch engines of their own, so the files are the same either way.
 """
 
 import os
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -30,8 +40,8 @@ from ..utils import io
 from ..utils.logger import logger
 from ..ops import density as dops
 from ..ops import neighbors as nops
-from ..ops.engine import DensityEngine
-from ..ops.screening import ThresholdSeriesScreener
+from ..ops.engine import DensityEngine, warm_failed, warm_on
+from ..ops.screening import ScreeningEngine, ThresholdSeriesScreener
 from ..utils.timer import stage_timer
 
 
@@ -93,6 +103,63 @@ def normalized_cluster_names(n_below, clustering, order):
     return lookup[c]
 
 
+def screening_step(free_energy, nh_dist, threshold, coords, prev_clustering,
+                   order=None, coords_sorted=None, engine=None,
+                   incremental=False, device="cuda"):
+    """One screening threshold: returns the normalized clustered
+    trajectory (the JAX package's ``screening_step``).
+
+    ``order`` / ``coords_sorted`` may be passed to re-use the FE sort across
+    thresholds of a screening series, and ``engine`` (a
+    :class:`ScreeningEngine` over ``coords_sorted``) its upload;
+    ``device`` serves only when ``engine`` is None. ``incremental=True``
+    asserts that ``prev_clustering`` is the previous threshold's fixpoint
+    at the same linking distance (true inside a -T series), enabling
+    new-edges-only sweeps.
+    """
+    fe = np.asarray(free_energy, dtype=np.float32)
+    n = len(fe)
+    if order is None:
+        order = sorted_fe_order(fe)
+    if coords_sorted is None:
+        coords_sorted = np.asarray(coords, dtype=np.float32)[order]
+    # number of frames with fe <= threshold (std::upper_bound semantics)
+    fe_sorted = fe[order]
+    n_below = int(np.searchsorted(fe_sorted, np.float32(threshold),
+                                  side="right"))
+    max_dist2 = np.float32(4.0 * nops.compute_sigma2(nh_dist))
+    logger("    %6s %9i" % ("%.2f" % threshold, n_below))
+    prev = (np.zeros(n, dtype=np.int64) if prev_clustering is None
+            else np.asarray(prev_clustering, dtype=np.int64))
+    prev_sorted = prev[order]
+    prev_sorted[n_below:] = 0
+    # first not-yet-clustered frame in FE order
+    zeros = np.flatnonzero(prev_sorted == 0)
+    prev_last = int(zeros[0]) if len(zeros) else n
+    if prev_last >= n_below:
+        # nothing new below this threshold: keep the previous clustering
+        return prev.copy()
+    # initial labels as frame pointers in sorted space: seeded frames point
+    # to the first occurrence of their seed label, new frames to themselves
+    labels0 = np.arange(n, dtype=np.int64)
+    prefix = prev_sorted[:n_below]
+    seeded = prefix != 0
+    if seeded.any():
+        vals, first_idx = np.unique(prefix[seeded], return_index=True)
+        seeded_pos = np.flatnonzero(seeded)
+        first_occ = seeded_pos[first_idx]
+        labels0[seeded_pos] = first_occ[
+            np.searchsorted(vals, prefix[seeded])]
+    if engine is None:
+        engine = ScreeningEngine(coords_sorted, device=device)
+    row_lo = prev_last if incremental else 0
+    final = engine.run(labels0.astype(np.int32), n_below, max_dist2,
+                       row_lo=row_lo)
+    clustering = np.zeros(n, dtype=np.int64)
+    clustering[order[:n_below]] = final[:n_below].astype(np.int64) + 1
+    return normalized_cluster_names(n_below, clustering, order)
+
+
 def _parse_threshold_series(params, free_energy):
     """-T FROM STEP TO -> the threshold list, with the reference's fp32
     loop arithmetic. Raises ValueError on usage errors."""
@@ -141,13 +208,13 @@ def _check_backends(coords, kind, got, radii=None, fe=None, device="cpu"):
              f" {frac:.2%} of entries disagree between backends")
 
 
-def _log_substages(engine, stage_key):
+def _log_substages(engine, stage_key, extra=None):
     """Verbose sub-stage walls (``t_plan``, ``t_band``, ``t_sweep`` ...)
-    of the engine's last ``stage_key`` stage, when
-    CLUSTERING_TPU_PROFILE_SUBSTAGES is set."""
+    of the engine's last ``stage_key`` stage, and those of ``extra`` if
+    given, when CLUSTERING_TPU_PROFILE_SUBSTAGES is set."""
     if not os.environ.get("CLUSTERING_TPU_PROFILE_SUBSTAGES"):
         return
-    st = engine.last_stats.get(stage_key, {})
+    st = dict(engine.last_stats.get(stage_key, {}), **(extra or {}))
     parts = ", ".join(f"{k}={v:.3f}" for k, v in st.items()
                       if isinstance(v, float) and k.startswith("t_"))
     if parts:
@@ -162,9 +229,18 @@ def _build_screener(coords, free_energy, thresholds, device):
     return series, time.perf_counter() - t0
 
 
-def main(args, header_comment, comments_map, device):
+def _precompile_on(engine):
+    """Whether the warm threads run: where the warms do
+    (``ops.engine.warm_on``), unless CLUSTERING_TPU_PRECOMPILE is "0"."""
+    return (warm_on(engine.device, engine.mesh)
+            and os.environ.get("CLUSTERING_TPU_PRECOMPILE") != "0")
+
+
+def main(args, header_comment, comments_map, device, device_warm=None):
     """density mode on ``device``, over the ranks of the process group
-    when one is initialised."""
+    when one is initialised. ``device_warm``, if given, is a dict whose
+    entries (the CLI's first-op warm, ``t_device_warm``) join the
+    populations sub-stage line."""
     coords = io.read_coords(args.file)
     mesh = make_mesh(device) if dist.is_initialized() else None
     engine = DensityEngine(coords, device=device, mesh=mesh)
@@ -175,29 +251,60 @@ def main(args, header_comment, comments_map, device):
     # every write is joined before the end
     write_pool = ThreadPoolExecutor(max_workers=3)
     deferred_writes = []
+    warms = []
+
+    def warm(fn, *args):
+        """Run ``fn(*args)`` on a daemon thread, joined before the end."""
+        if _precompile_on(engine):
+            warms.append(threading.Thread(target=fn, args=args,
+                                          daemon=True))
+            warms[-1].start()
 
     def _defer_write(fn, path, data):
         snap = dict(comments_map)
         deferred_writes.append(
             write_pool.submit(fn, path, data, header_comment, snap))
 
+    will_run_pops = (not args.free_energy_input and not args.input
+                     and (args.free_energy or args.population
+                          or args.output))
+    will_run_nn = (not args.nearest_neighbors_input and not args.radii
+                   and (args.nearest_neighbors or args.output
+                        or args.radius is None)
+                   and not args.input)
+    radii = (list(args.radii) if args.radii
+             else [1.0 if args.radius is None else float(args.radius)])
+
+    def stage_warms():
+        # one thread: the warms' host work would only contend for the
+        # interpreter lock with each other and with the stages
+        if will_run_pops:
+            engine.precompile_pops(radii)
+        if will_run_nn:
+            engine.precompile_nn()
+
+    if will_run_pops or will_run_nn:
+        warm(stage_warms)
     try:
         free_energy = _free_energy_stage(args, engine, comments_map,
-                                         _defer_write)
+                                         _defer_write, device_warm)
         nh, series_fut = _nn_stage(args, engine, free_energy, comments_map,
                                    header_comment, write_pool,
-                                   deferred_writes)
+                                   deferred_writes, warm)
         if args.output:
             _cluster_stage(args, coords, free_energy, nh, comments_map,
-                           header_comment, device, mesh, series_fut)
+                           header_comment, device, mesh, series_fut, warm)
         for fut in deferred_writes:
             fut.result()
     finally:
         write_pool.shutdown()
+        for thread in warms:
+            thread.join()
     logger("~~~ freeing memory")
 
 
-def _free_energy_stage(args, engine, comments_map, defer_write):
+def _free_energy_stage(args, engine, comments_map, defer_write,
+                       device_warm=None):
     if args.input and (args.free_energy or args.nearest_neighbors):
         _die("error: for input (-i) -D/-B should be used.")
     logger("~~~ free energy and population")
@@ -224,7 +331,7 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
         logger("    using radii: " + ", ".join(str(r) for r in radii))
         with stage_timer("populations"):
             pops_map = engine.populations(radii)
-        _log_substages(engine, "populations")
+        _log_substages(engine, "populations", device_warm)
         if args.check:
             _check_backends(engine.coords, "pops", pops_map, radii=radii,
                             device=engine.device)
@@ -263,7 +370,7 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
     with stage_timer("populations"):
         pops = engine.populations(
             [radius], nn_band_radius=radius if will_run_nn else None)[radius]
-    _log_substages(engine, "populations")
+    _log_substages(engine, "populations", device_warm)
     if args.check:
         _check_backends(engine.coords, "pops", {radius: pops},
                         radii=[radius], device=engine.device)
@@ -278,9 +385,9 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
 
 
 def _nn_stage(args, engine, free_energy, comments_map, header_comment,
-              write_pool, deferred_writes):
+              write_pool, deferred_writes, warm):
     """(the neighbourhoods, the Future of the screener built meanwhile or
-    None)."""
+    None); ``warm`` starts a warm thread (``main``)."""
     logger("\n~~~ nearest neighbors")
     if args.nearest_neighbors_input:
         logger("    re-using nearest neighbor: "
@@ -312,6 +419,19 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
             series_fut = write_pool.submit(_build_screener, engine.coords,
                                            free_energy, thresholds,
                                            engine.device)
+    if (series_fut is not None
+            and os.environ.get("CLUSTERING_TPU_EARLY_SCREEN_WARM") != "0"):
+        # the screening warm during NN, at the linking distance estimated
+        # from the prefetched band pass
+        def early_screen_warm():
+            try:
+                est = engine.band_sigma2_estimate()
+                if est is not None:
+                    series_fut.result()[0].precompile(
+                        np.float32(4.0 * est), compile_only=True)
+            except Exception as exc:  # the stages raise it themselves
+                warm_failed("early screening warm", exc)
+        warm(early_screen_warm)
     with stage_timer("nearest neighbors"):
         nh = engine.nearest_neighbors(free_energy)
     _log_substages(engine, "nn")
@@ -333,7 +453,8 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
 
 
 def _cluster_stage(args, coords, free_energy, nh, comments_map,
-                   header_comment, device, mesh, series_fut=None):
+                   header_comment, device, mesh, series_fut=None,
+                   warm=None):
     if args.radii:
         _die("error: output needs to depend on single radius\n"
              "       but several radii (-R) are set.")
@@ -379,6 +500,8 @@ def _cluster_stage(args, coords, free_energy, nh, comments_map,
     if series_fut is not None:
         logger(f"    [screener built during nearest neighbors in"
                f" {t_build:.3f}s]")
+    if warm is not None:
+        warm(series.precompile, max_dist2)
     # each step's label download + naming and its file write overlap the
     # next threshold's sweeps
     with ThreadPoolExecutor(max_workers=2) as post_pool, \

@@ -1,9 +1,10 @@
 """Per-frame neighbour populations and free energies.
 
 Counterpart of ``clustering_tpu/ops/density.py``: ``populations`` is the
-library entry point on the tile-sweep path (the JAX one with
-``backend="pallas"``), ``free_energies`` a copy (fp32 division and log,
-like the reference), ``populations_dense`` the dense oracle of the
+library entry point, on the tile-sweep path for the JAX package's
+``backend="pallas"`` (and "auto") and on the dense plain version for its
+``backend="xla"``; ``free_energies`` a copy (fp32 division and log, like
+the reference); ``populations_dense`` the dense plain version of the
 tile-sweep path (the counterpart of ``counts_rows``): a frame j counts
 toward pop_i iff d2(i, j) <= r^2, j == i included.
 """
@@ -11,18 +12,28 @@ toward pop_i iff d2(i, j) <= r^2, j == i included.
 import numpy as np
 import torch
 
-from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, DensityEngine
+from .engine import (DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, DensityEngine,
+                     resolve_backend, resolve_device)
 from .pairwise import sq_dists
 
 
 def populations(coords, radii, row_block=DEFAULT_ROW_BLOCK,
-                col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
+                col_block=DEFAULT_COL_BLOCK, backend="auto", prune=True,
+                device="cuda", mesh=None):
     """Neighbour populations for each radius: dict radius -> (N,) int64
-    (self included), through :class:`DensityEngine` on ``device``, over
-    the ranks of ``mesh`` if given."""
-    engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
-                           device=device, mesh=mesh)
-    return engine.populations(radii)
+    (self included), on ``device``.
+
+    ``backend`` "auto" or "pallas": through :class:`DensityEngine`, over
+    the ranks of ``mesh`` if given, its tile list pruned unless ``prune``
+    is False (``DensityEngine.populations``). "xla": the dense plain
+    version (:func:`populations_dense`, no mesh), which is what the JAX
+    package's XLA route computes. Anything else raises ValueError."""
+    if resolve_backend(backend, dense=True, mesh=mesh):
+        return populations_dense(coords, radii,
+                                 device=resolve_device(device))
+    engine = DensityEngine(coords, row_block, col_block, mesh=mesh,
+                           device=device)
+    return engine.populations(radii, prune=prune)
 
 
 def free_energies(pops) -> np.ndarray:

@@ -54,6 +54,50 @@ def resolve_device(device):
     return device
 
 
+def resolve_backend(backend, dense=False, mesh=None):
+    """The route of the JAX package's ``backend`` argument: False for the
+    tile-sweep route ("auto" and "pallas": the kernels on CUDA, their
+    plain versions on the CPU), True for the dense plain versions ("xla",
+    where ``dense`` allows it: the ops functions, not the engines, and on
+    one device, without ``mesh``). Anything else raises ValueError."""
+    if backend in ("auto", "pallas"):
+        return False
+    if backend == "xla" and dense:
+        if mesh is not None:
+            raise ValueError('backend="xla" runs on one device: mesh='
+                             ' needs backend="pallas"')
+        return True
+    raise ValueError(
+        f"backend={backend!r} is not served here: the port runs the JAX"
+        " package's backend=\"pallas\" route (its CUDA kernels, or their"
+        " plain versions on the CPU); choose the device with device=")
+
+
+def warm_on(device, mesh):
+    """Whether the warms (``precompile_*``) run: on a CUDA device without a
+    mesh (from a worker thread, uploads could race the collectives)."""
+    return device.type == "cuda" and mesh is None
+
+
+def warm_failed(what, exc):
+    """Report a warm's failure under -v when
+    CLUSTERING_TPU_PROFILE_SUBSTAGES is set: a warm never raises, and the
+    stage it warms raises the failure itself if it recurs there."""
+    if os.environ.get("CLUSTERING_TPU_PROFILE_SUBSTAGES"):
+        logger(f"      [{what} failed: {exc!r}]")
+
+
+def _band_nh_mean(keys):
+    """fp32 mean of the finite per-frame nh bounds in a band pass's (2,
+    N_pad) key buffer (the JAX engine's ``_band_nh_mean``): an estimate of
+    ``compute_sigma2``, exact for every frame whose nearest neighbour lies
+    within the band. A 0-d device tensor."""
+    v, _ = kernels.unpack_keys(keys[0])
+    ok = torch.isfinite(v)
+    total = torch.where(ok, v, torch.zeros_like(v)).sum()
+    return total / ok.sum().to(torch.float32).clamp_min(1.0)
+
+
 # -- ub-quantile tiers of the NN phase 2 (the JAX engine's helpers) ----------
 
 def _ub_tiers(stacked_d, n, qs):
@@ -157,6 +201,10 @@ class DensityEngine:
     (``nearest_neighbors(tier_qs=...)``), and may start from a band pass
     that ``populations(nn_band_radius=...)`` began.
 
+    ``backend`` is the JAX engine's: "auto" and "pallas" select the
+    tile-sweep route, which is the only one; anything else raises
+    ValueError. The device is ``device``.
+
     With a ``mesh`` (``parallel.mesh.Mesh``) each rank sweeps its share of
     every tile list on ``device`` and the results merge over the ranks;
     ``last_stats`` then says ``mode`` (NN: ``route``) "bidir-mesh" or
@@ -165,9 +213,13 @@ class DensityEngine:
 
     POPS_BIDIR = True
     NN_BIDIR = True
+    # set on the warms' scratch engines (_scratch): no -v lines
+    _quiet = False
 
     def __init__(self, coords, row_block=DEFAULT_ROW_BLOCK,
-                 col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
+                 col_block=DEFAULT_COL_BLOCK, backend="auto", mesh=None,
+                 device="cuda"):
+        resolve_backend(backend)
         self.device = resolve_device(device)
         self.mesh = mesh
         self.row_block = row_block
@@ -187,10 +239,13 @@ class DensityEngine:
     # -- cached layouts ------------------------------------------------------
 
     def _padded(self, name):
-        """(order, padded) for layout ``name``: 'dim0' (stable sort by the
-        first coordinate) or 'morton'; pads at 3e38."""
+        """(order, padded) for layout ``name``: 'orig' (the frames as
+        given), 'dim0' (stable sort by the first coordinate) or 'morton';
+        pads at 3e38."""
         if name not in self._orders:
-            if name == "dim0":
+            if name == "orig":
+                order = np.arange(self.n)
+            elif name == "dim0":
                 order = np.argsort(self.coords[:, 0], kind="stable")
             elif name == "morton":
                 native = textio_native.morton_order_pad(self.coords,
@@ -268,7 +323,7 @@ class DensityEngine:
                                             self.mesh.size)
 
     def _log_stats(self, stage, tiles, what=""):
-        if is_verbose():
+        if is_verbose() and not self._quiet:
             frac = (tiles * float(self.row_block * self.col_block)
                     / (float(self.n) * self.n))
             logger(f"    [{stage}: {tiles} tiles computed = {frac:.1%} of"
@@ -310,11 +365,15 @@ class DensityEngine:
             rmask |= planes[1 + r_idx][ti, tj].astype(np.int32) << r_idx
         return (name,) + tuple(map(self._put, (ti, tj, rmask)))
 
-    def populations(self, radii, nn_band_radius=None):
+    def populations(self, radii, prune=True, nn_band_radius=None):
         """dict radius -> (N,) int64 populations (self included); the
         sweep's mode ("bidir" or "symmetric") and planner ("device" or
         "host") are in ``last_stats["populations"]``, with ``t_plan`` and
         the part of it that chose the layout, ``t_best_sort``.
+
+        ``prune=False`` sweeps the JAX engine's unpruned plan: the frames
+        in their given order ("orig"), every tile, row-side
+        (``kernels.pops_sparse``).
 
         ``nn_band_radius``, one of ``radii``, starts the NN band pass from
         that radius's counts before returning (without a mesh), so that it
@@ -324,9 +383,17 @@ class DensityEngine:
         (``last_stats["populations"]["nn_band_prefetch"]``)."""
         t0 = time.perf_counter()
         radii = list(radii)
-        bidir = self.POPS_BIDIR
-        stats = self._stats(bidir, "device" if bidir else "host")
-        name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
+        bidir = prune and self.POPS_BIDIR
+        stats = self._stats(bidir, "host" if prune and not bidir
+                            else "device")
+        if prune:
+            name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
+        else:
+            name = "orig"
+            ti, tj = pruning.tile_list_device(torch.ones(
+                (self.n_pad // self.row_block, self.n_pad // self.col_block),
+                dtype=torch.bool, device=self.device))
+            rmask = torch.full_like(ti, (1 << len(radii)) - 1)
         radii2 = self._put(np.asarray(
             [np.float32(r) * np.float32(r) for r in radii], np.float32))
         stats["computed_tiles"] = int(len(ti))
@@ -502,7 +569,8 @@ class DensityEngine:
                                      NN_BAND_BLOCKS, bidir, stats)
                 band.update(fe_band=fe_band, order_name=NN_BAND_ORDER,
                             band_blocks=NN_BAND_BLOCKS, bidir=bidir,
-                            band_tiles=stats["band_tiles"])
+                            band_tiles=stats["band_tiles"],
+                            nh_mean=_band_nh_mean(band["keys"]))
                 self._band_prefetch = band
             except Exception as exc:  # raised by _take_band_prefetch
                 self._band_prefetch_error = exc
@@ -522,6 +590,79 @@ class DensityEngine:
         if err is not None:
             raise err
         return pf
+
+    def band_sigma2_estimate(self, timeout=60.0):
+        """Estimate of ``compute_sigma2`` (the mean squared NN distance)
+        from the prefetched band pass's per-frame nh bounds, as a float, or
+        None: without a stash (none started, or the thread is still
+        running after ``timeout`` seconds), or when the mean is not finite
+        and positive. The stash stays for :meth:`nearest_neighbors`. The
+        mean was taken on the prefetch thread, before phase 2 could fold
+        into the stash's keys (the JAX engine's
+        ``band_sigma2_estimate``)."""
+        thread = self._band_prefetch_thread
+        if thread is not None:
+            thread.join(timeout)
+        pf = self._band_prefetch
+        if pf is None:
+            return None
+        val = float(pf["nh_mean"])
+        return val if np.isfinite(val) and val > 0.0 else None
+
+    # -- warms -----------------------------------------------------------------
+
+    def _scratch(self, n_col_blocks):
+        """A quiet engine of its own for the warms: this engine's D, blocks,
+        device and switches over frames on a line (spacing 1 along the
+        first axis) that fill ``n_col_blocks`` column blocks."""
+        block = int(np.lcm(self.row_block, self.col_block))
+        n = -(-n_col_blocks * self.col_block // block) * block
+        coords = np.zeros((n, self.d), dtype=np.float32)
+        coords[:, 0] = np.arange(n)
+        eng = DensityEngine(coords, self.row_block, self.col_block,
+                            device=self.device)
+        eng.POPS_BIDIR, eng.NN_BIDIR = self.POPS_BIDIR, self.NN_BIDIR
+        eng._quiet = True
+        return eng
+
+    def precompile_pops(self, radii, prune=True):
+        """Pay the populations stage's first-use costs on the card before
+        the stage, from a worker thread: the kernel library's load and the
+        first launch of the stage's kernel (CUDA loads each kernel's module
+        at its first launch) and of every torch op of its plan and its band
+        prefetch. Nothing is compiled at run time here -- nvcc
+        built the kernels once -- so this is the counterpart of the JAX
+        engine's ``precompile_pops``: it runs the stage on a scratch
+        engine of its own (:meth:`_scratch`, 2 * NN_BAND_BLOCKS + 1 column
+        blocks) and never touches this engine's layouts, device tensors,
+        band stash or ``last_stats``. Never raises (a failure is logged by
+        :func:`warm_failed`); returns at once on the CPU and on a mesh."""
+        if not warm_on(self.device, self.mesh):
+            return
+        try:
+            radii = list(radii)
+            eng = self._scratch(2 * NN_BAND_BLOCKS + 1)
+            eng.populations(radii, prune=prune, nn_band_radius=radii[0])
+            eng._take_band_prefetch()
+        except Exception as exc:
+            warm_failed("precompile_pops", exc)
+
+    def precompile_nn(self, band_blocks=NN_BAND_BLOCKS):
+        """The NN stage's warm, as :meth:`precompile_pops` is the
+        populations stage's: the stage on a scratch engine of 2 *
+        ``band_blocks`` + 1 column blocks, its phase 2 tiered at the
+        default quantiles so that the tiered plan's quantile search and
+        sorts run too (the JAX engine's ``precompile_nn``). Never raises;
+        returns at once on the CPU and on a mesh."""
+        if not warm_on(self.device, self.mesh):
+            return
+        try:
+            eng = self._scratch(2 * band_blocks + 1)
+            eng.nearest_neighbors(np.arange(eng.n, dtype=np.float32),
+                                  band_blocks=band_blocks,
+                                  tier_qs=self.TIER_QS_DEFAULT)
+        except Exception as exc:
+            warm_failed("precompile_nn", exc)
 
     # -- the tiered phase 2 ----------------------------------------------------
 

@@ -7,28 +7,39 @@ Counterpart of ``clustering_tpu/ops/neighbors.py``:
 
 Ties break toward the smallest j; zero-distance pairs (duplicate frames)
 are excluded; a frame with no admissible neighbour reports (0, 0.0).
-``nearest_neighbors`` is the library entry point on the tile-sweep path
-(the JAX one with ``backend="pallas"``), ``nearest_neighbors_dense`` its
-dense oracle (the counterpart of ``nn_rows``).
+``nearest_neighbors`` is the library entry point, on the tile-sweep path
+for the JAX package's ``backend="pallas"`` (and "auto") and on
+``nearest_neighbors_dense``, the dense plain version of that path (the
+counterpart of ``nn_rows``), for its ``backend="xla"``.
 """
 
 import numpy as np
 import torch
 
-from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, DensityEngine
+from .engine import (DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, DensityEngine,
+                     resolve_backend, resolve_device)
 from .pairwise import sq_dists
 
 _INF = float("inf")
 
 
 def nearest_neighbors(coords, free_energy, row_block=DEFAULT_ROW_BLOCK,
-                      col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
+                      col_block=DEFAULT_COL_BLOCK, backend="auto",
+                      prune=True, device="cuda", mesh=None):
     """Returns (nh_idx, nh_d2, nhhd_idx, nhhd_d2) numpy arrays of len N,
-    through :class:`DensityEngine` on ``device``, over the ranks of
-    ``mesh`` if given."""
-    engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
-                           device=device, mesh=mesh)
-    return engine.nearest_neighbors(free_energy)
+    on ``device``.
+
+    ``backend`` "auto" or "pallas": through :class:`DensityEngine`, over
+    the ranks of ``mesh`` if given, with the two-phase pruning unless
+    ``prune`` is False (``DensityEngine.nearest_neighbors``). "xla": the
+    dense plain version (:func:`nearest_neighbors_dense`, no mesh).
+    Anything else raises ValueError."""
+    if resolve_backend(backend, dense=True, mesh=mesh):
+        return nearest_neighbors_dense(coords, free_energy,
+                                       device=resolve_device(device))
+    engine = DensityEngine(coords, row_block, col_block, mesh=mesh,
+                           device=device)
+    return engine.nearest_neighbors(free_energy, prune=prune)
 
 
 def nearest_neighbors_dense(coords, free_energy, device="cpu",

@@ -37,7 +37,8 @@ from ..utils.logger import is_verbose, logger
 
 from ..parallel.mesh import pmin_
 from . import kernels, pruning
-from .engine import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, resolve_device
+from .engine import (DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, resolve_backend,
+                     resolve_device, warm_failed, warm_on)
 
 
 def pointer_jump(table):
@@ -90,12 +91,18 @@ class ScreeningEngine:
     is on (the counterpart of the JAX engine's ``BIDIR_UNION_VMEM``, which
     0 turns off) and col_block % row_block == 0 (the row-dirty flags
     reshape the union into row blocks), else symmetrically. With a
-    ``mesh`` each rank sweeps its share of the list on ``device``."""
+    ``mesh`` each rank sweeps its share of the list on ``device``.
+    ``backend`` is the JAX engine's: "auto" and "pallas" select the
+    tile-sweep route, anything else raises ValueError."""
 
     BIDIR = True
+    # set on the warm's scratch engine (ThresholdSeriesScreener.precompile)
+    _quiet = False
 
     def __init__(self, coords_sorted, row_block=DEFAULT_ROW_BLOCK,
-                 col_block=DEFAULT_COL_BLOCK, device="cuda", mesh=None):
+                 col_block=DEFAULT_COL_BLOCK, backend="auto", mesh=None,
+                 device="cuda"):
+        resolve_backend(backend)
         self.device = resolve_device(device)
         self.mesh = mesh
         self.row_block = row_block
@@ -227,7 +234,7 @@ class ScreeningEngine:
             tag = "mesh "
             stats.update(mode=mode + "-mesh", mesh_devices=self.mesh.size,
                          per_device_tiles=len(ti))
-        if is_verbose():
+        if is_verbose() and not self._quiet:
             logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
                    f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
                    f" {plan} plan, host-driven]")
@@ -257,7 +264,8 @@ class ThresholdSeriesScreener:
 
     def __init__(self, coords, free_energy, thresholds,
                  row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
-                 device="cuda", hd_neighbors=None, mesh=None):
+                 backend="auto", mesh=None, hd_neighbors=None,
+                 device="cuda"):
         coords = np.asarray(coords, dtype=np.float32)
         fe = np.asarray(free_energy, dtype=np.float32)
         self.thresholds = [np.float32(t) for t in thresholds]
@@ -278,10 +286,8 @@ class ThresholdSeriesScreener:
         self._series_rank[self.order] = np.arange(n)
         # series positions in FE-ascending frame order (for naming)
         self._fe_asc_pos = self._series_rank[fe_order]
-        self.engine = ScreeningEngine(coords[self.order],
-                                      row_block=row_block,
-                                      col_block=col_block, device=device,
-                                      mesh=mesh)
+        self.engine = ScreeningEngine(coords[self.order], row_block,
+                                      col_block, backend, mesh, device)
         self.n = n
         self._prev_nb = 0
         self._labels = None
@@ -300,6 +306,37 @@ class ThresholdSeriesScreener:
         hd_d = np.asarray(hd_neighbors[1], dtype=np.float32)
         self._hd_pos = self._series_rank[hd_j[self.order]].astype(np.int32)
         self._hd_d = hd_d[self.order]
+
+    def precompile(self, max_dist2, compile_only=False):
+        """Pay the screening steps' first-use costs on the card before the
+        first step, from a worker thread: the kernel library's load and the
+        first launch of the fixpoint's kernel and of every torch op of its
+        plan, union and pointer jumping. The counterpart of the JAX
+        screener's ``precompile``, which compiles each step's program;
+        here nvcc built the kernels once and nothing compiles at run time,
+        so there is no compile to separate from execution, and
+        ``compile_only`` changes nothing: either way the fixpoint runs at
+        ``max_dist2`` on a scratch engine of one grid block of coincident
+        frames, cold and then as a continuation, and never at the real
+        size. Never touches this screener's state. Never raises (a failure
+        is logged by ``engine.warm_failed``); returns at once on the CPU
+        and on a mesh."""
+        eng = self.engine
+        if not warm_on(eng.device, eng.mesh):
+            return
+        try:
+            n = int(np.lcm(eng.row_block, eng.col_block))
+            scratch = ScreeningEngine(np.zeros((n, eng.coords_t.shape[0]),
+                                               dtype=np.float32),
+                                      eng.row_block, eng.col_block,
+                                      device=eng.device)
+            scratch.BIDIR = eng.BIDIR
+            scratch._quiet = True
+            labels = scratch.run(np.arange(n, dtype=np.int32), n // 2,
+                                 max_dist2)
+            scratch.run(labels, n, max_dist2, row_lo=n // 2)
+        except Exception as exc:
+            warm_failed("screener precompile", exc)
 
     def _seed_vals(self, lo, hi, max_dist2):
         """Seeds for positions [lo, hi): the hd edge when it lies below the
@@ -445,11 +482,12 @@ class ThresholdSeriesScreener:
 
 def screening_labels(coords_sorted, initial_labels, n_below, max_dist2,
                      row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
-                     device="cuda"):
+                     backend="auto", device="cuda"):
     """Host wrapper: pad, run the fixpoint, unpad.
 
     ``coords_sorted`` (N, D) must already be in FE-ascending order and
-    ``initial_labels`` (N,) int32 frame pointers with labels[i] <= i."""
-    engine = ScreeningEngine(coords_sorted, row_block=row_block,
-                             col_block=col_block, device=device)
+    ``initial_labels`` (N,) int32 frame pointers with labels[i] <= i.
+    ``backend``: as :class:`ScreeningEngine`'s."""
+    engine = ScreeningEngine(coords_sorted, row_block, col_block, backend,
+                             device=device)
     return engine.run(initial_labels, n_below, max_dist2)

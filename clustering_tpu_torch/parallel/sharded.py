@@ -2,8 +2,10 @@
 
 Counterpart of the public functions of ``clustering_tpu/parallel/
 sharded.py``: ``populations``, ``nearest_neighbors`` and
-``screening_labels``, with the port's ``ops`` signatures (no
-``backend``) and a :class:`~.mesh.Mesh` from :func:`~.mesh.make_mesh`.
+``screening_labels``, on the tile-sweep route, without the JAX
+functions' ``backend`` and ``prune`` (their default there, "xla", selects
+the dense programs that are not ported, below), with a
+:class:`~.mesh.Mesh` from :func:`~.mesh.make_mesh`.
 Each runs the single-device engine with ``mesh``: every rank plans the
 whole tile list, sweeps its round-robin share on its device, and the
 partial results merge by ``all_reduce``; every rank returns the whole,

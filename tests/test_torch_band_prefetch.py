@@ -15,6 +15,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
+import torch
 
 import make_golden
 from clustering_tpu import cli as jcli
@@ -192,3 +193,133 @@ def test_cli_prefetches_and_builds_the_screener_during_nn(
     np.testing.assert_array_equal(g[:, [0, 2]], w[:, [0, 2]])
     unit = 10.0 ** (np.floor(np.log10(np.maximum(w[:, [1, 3]], 1e-30))) - 5)
     assert (np.abs(g[:, [1, 3]] - w[:, [1, 3]]) <= unit * 1.0000001).all()
+
+
+# -- band_sigma2_estimate ------------------------------------------------------
+
+@pytest.mark.parametrize("route", ["bidir", "symmetric"])
+def test_band_sigma2_estimate_matches_jax_and_keeps_the_stash(blobs, route):
+    eng = _engine(blobs, route)
+    pops = eng.populations([R], nn_band_radius=R)[R]
+    est = eng.band_sigma2_estimate()
+    je = jengine.DensityEngine(blobs, row_block=RB, col_block=CB,
+                               backend="pallas")
+    if route == "symmetric":
+        je.NN_BIDIR_SCRATCH_CAP = 0
+    je.populations([R], nn_band_radius=R)
+    want = je.band_sigma2_estimate()
+    assert want is not None and est is not None
+    np.testing.assert_allclose(est, want, rtol=1e-5)
+    # the stash stays for NN, and is gone once NN took it
+    eng.nearest_neighbors(free_energies(pops))
+    assert eng.last_stats["nn"]["band_prefetched"] is True
+    assert eng.band_sigma2_estimate() is None
+
+
+def test_band_sigma2_estimate_without_a_stash(blobs):
+    eng = _engine(blobs)
+    assert eng.band_sigma2_estimate() is None
+    eng.populations([R])
+    assert eng.band_sigma2_estimate() is None
+
+
+# -- the warms -----------------------------------------------------------------
+
+def test_precompile_returns_at_once_on_the_cpu(blobs, monkeypatch):
+    """On the CPU the warms do nothing: no scratch engine, no sweep."""
+    from clustering_tpu_torch.ops import screening
+
+    def refused(*args, **kw):
+        raise AssertionError("a warm ran on the CPU")
+
+    series = screening.ThresholdSeriesScreener(blobs, np.zeros(len(blobs)),
+                                               [0.5], RB, CB, device="cpu")
+    monkeypatch.setattr(tengine.DensityEngine, "_scratch", refused)
+    monkeypatch.setattr(screening.ScreeningEngine, "__init__", refused)
+    monkeypatch.setattr(tengine, "warm_failed", refused)
+    monkeypatch.setattr(screening, "warm_failed", refused)
+    eng = _engine(blobs)
+    assert eng.precompile_pops([R]) is None
+    assert eng.precompile_nn() is None
+    assert series.precompile(np.float32(0.1)) is None
+    assert series.precompile(np.float32(0.1), compile_only=True) is None
+
+
+def test_warm_bodies_leave_the_results_unchanged(blobs, monkeypatch):
+    """The warms' own logic, run on the CPU (``warm_on`` forced): each runs
+    its stage on a scratch engine, touches none of the engine's caches,
+    and the stages that follow give results bit-equal to a fresh
+    engine's."""
+    from clustering_tpu_torch.ops import screening
+
+    def failed(what, exc):
+        raise AssertionError(f"{what}: {exc!r}")
+
+    scratches = []
+    scratch = tengine.DensityEngine._scratch
+
+    def recorded(self, *args):
+        scratches.append(scratch(self, *args))
+        return scratches[-1]
+
+    for mod in (tengine, screening):
+        monkeypatch.setattr(mod, "warm_on", lambda device, mesh: True)
+        monkeypatch.setattr(mod, "warm_failed", failed)
+    monkeypatch.setattr(tengine.DensityEngine, "_scratch", recorded)
+    eng, fresh = _engine(blobs), _engine(blobs)
+    eng.precompile_pops([R])
+    eng.precompile_nn()
+    assert eng._dev == {} and eng._orders == {} and eng.last_stats == {}
+    assert eng._band_prefetch is None and eng._band_prefetch_thread is None
+    # the scratch engines ran the stages: populations with its band
+    # prefetch, NN on a tiered phase 2
+    assert [s.n for s in scratches] == [9 * CB, 9 * CB]
+    assert scratches[0].last_stats["populations"]["nn_band_prefetch"]
+    assert scratches[1].last_stats["nn"]["mode"] == "tiered"
+    pops = eng.populations([R], nn_band_radius=R)[R]
+    fe = free_energies(pops)
+    est = eng.band_sigma2_estimate()
+    series = screening.ThresholdSeriesScreener(blobs, fe, [0.6, 1.2], RB, CB,
+                                               device="cpu")
+    series.precompile(np.float32(4.0 * est), compile_only=True)
+    got = eng.nearest_neighbors(fe)
+    assert eng.last_stats["nn"]["band_prefetched"] is True
+    fe_fresh = free_energies(fresh.populations([R])[R])
+    np.testing.assert_array_equal(pops, fresh.populations([R])[R])
+    _assert_bit_equal(got, fresh.nearest_neighbors(fe_fresh))
+    md2 = np.float32(4.0 * np.mean(got[1], dtype=np.float64))
+    series.precompile(md2)
+    assert series._labels is None and series.engine._below is None
+    want = screening.ThresholdSeriesScreener(blobs, fe, [0.6, 1.2], RB, CB,
+                                             device="cpu")
+    a = b = None
+    for k in range(2):
+        a, b = series.step(a, k, md2), want.step(b, k, md2)
+        np.testing.assert_array_equal(a, b)
+
+
+def test_cli_starts_no_warm_thread_on_the_cpu(tmp_path, monkeypatch):
+    """The density CLI on the CPU: no precompile or device-warm thread."""
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    monkeypatch.chdir(tmp_path)
+    from clustering_tpu_torch.ops import screening
+    started = []
+    for cls, name in ((tengine.DensityEngine, "precompile_pops"),
+                      (tengine.DensityEngine, "precompile_nn"),
+                      (screening.ThresholdSeriesScreener, "precompile")):
+        monkeypatch.setattr(cls, name, lambda *a, _n=name, **k:
+                            started.append(_n))
+    monkeypatch.setattr(tcli, "_start_device_warm",
+                        lambda device: started.append(device))
+    rng = np.random.default_rng(3)
+    np.savetxt("coords.dat", rng.normal(size=(200, 2)), fmt="%.5f")
+    assert tcli.main(["density", "-f", "coords.dat", "-r", "0.3", "-o", "c",
+                      "-T", "0.5", "0.5", "1.5", "-b", "nn"]) == 0
+    assert started == []
+    eng = tengine.DensityEngine(np.zeros((4, 2), np.float32), device="cpu")
+    assert not tdensity._precompile_on(eng)
+    # the warms' gate: a CUDA device without a mesh, nothing else
+    cuda = torch.device("cuda")
+    assert tengine.warm_on(cuda, None)
+    assert not tengine.warm_on(cuda, object())
+    assert not tengine.warm_on(torch.device("cpu"), None)

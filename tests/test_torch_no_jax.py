@@ -118,6 +118,49 @@ def test_host_modes_through_port_cli_import_no_jax_package(tmp_path):
         assert (tmp_path / name).exists(), name
 
 
+def test_surface_and_switches_import_no_jax_package(tmp_path):
+    """The JAX package's call forms, ``screening_step``, the warms and
+    ``band_sigma2_estimate``, and a profiled CLI run, in one process of
+    the port: no module of jax or of the JAX package gets loaded."""
+    code = ("import os, sys\n"
+            "import numpy as np\n"
+            "os.environ['CLUSTERING_TORCH_DEVICE'] = 'cpu'\n"
+            "os.environ['CLUSTERING_TPU_PROFILE'] = 'trace'\n"
+            "from clustering_tpu_torch import cli\n"
+            "from clustering_tpu_torch.models.density import screening_step\n"
+            "from clustering_tpu_torch.ops import density, neighbors\n"
+            "from clustering_tpu_torch.ops.engine import DensityEngine\n"
+            "from clustering_tpu_torch.ops.screening import "
+            "ThresholdSeriesScreener\n"
+            "c = np.random.default_rng(4).normal(size=(300, 2))"
+            ".astype(np.float32)\n"
+            "p = density.populations(c, [0.3], 8, 16, 'pallas', False, 'cpu')\n"
+            "x = density.populations(c, [0.3], 8, 16, 'xla', True, 'cpu')\n"
+            "assert (p[0.3] == x[0.3]).all()\n"
+            "fe = density.free_energies(p[0.3])\n"
+            "nn = neighbors.nearest_neighbors(c, fe, 8, 16, 'xla', True, "
+            "'cpu')\n"
+            "e = DensityEngine(c, 8, 16, 'auto', None, 'cpu')\n"
+            "assert e.precompile_pops([0.3]) is None\n"
+            "assert e.precompile_nn() is None\n"
+            "e.populations([0.3], True, 0.3)\n"
+            "assert e.band_sigma2_estimate() > 0\n"
+            "s = ThresholdSeriesScreener(c, fe, [1.0], 8, 16, 'auto', None, "
+            "None, 'cpu')\n"
+            "assert s.precompile(np.float32(0.1)) is None\n"
+            "got = screening_step(fe, nn[1], 1.0, c, None, device='cpu')\n"
+            "assert (got == s.step(None, 0, np.float32(4 * nn[1].astype("
+            "np.float64).mean()))).all()\n"
+            "np.savetxt('coords.dat', c, fmt='%.5f')\n"
+            "assert cli.main(['density', '-f', 'coords.dat', '-r', '0.3', "
+            "'-o', 'c', '-T', '1.0']) == 0\n"
+            "assert os.path.exists('trace/trace.json')\n"
+            f"bad = {FOREIGN}\n"
+            "assert not bad, bad\n"
+            "print('ok')\n")
+    assert _python(code, tmp_path).splitlines()[-1] == "ok"
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -135,6 +178,18 @@ def test_engines_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         ThresholdSeriesScreener(coords, np.zeros(20, np.float32), [0.5],
                                 device="cuda")
+    # the JAX package's surface: the default device is CUDA on every route
+    from clustering_tpu_torch.models.density import screening_step
+    from clustering_tpu_torch.ops import density, neighbors
+    fe = np.zeros(20, np.float32)
+    for call in (
+            lambda: density.populations(coords, [0.1], backend="xla"),
+            lambda: density.populations(coords, [0.1], prune=False),
+            lambda: neighbors.nearest_neighbors(coords, fe, backend="xla"),
+            lambda: screening_step(fe, np.ones(20, np.float32), 1.0, coords,
+                                   None)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
 
 
 def test_cli_density_raises_without_cuda(no_cuda, monkeypatch, tmp_path):

@@ -3,7 +3,14 @@ its single-rank engines and against the JAX package's mesh functions.
 
 Ranks are real processes on the CPU under gloo, each its own subprocess
 with a ``FileStore`` rendezvous in the test's temporary directory (no
-port to race for between test workers). Each rank runs
+port to race for between test workers). Each rank drops every object
+that holds the process group (its mesh, engines and screener) before
+``destroy_process_group``, so that gloo's threads are joined there and
+not left running into the interpreter's exit, and checks that they are
+gone. The two-rank CLI run rendezvouses at a ``TCPStore`` that the test
+itself holds open on a port the system picked, which the ranks join as
+clients (``TORCHELASTIC_USE_AGENT_STORE``), so no other process can take
+the port between its choice and its use. Each rank runs
 ``parallel.sharded.populations`` (two radii), ``nearest_neighbors``,
 ``screening_labels`` and a ``ThresholdSeriesScreener`` series driven by
 ``step_submit``, on both sweep routes (the engines' bidirectional
@@ -18,7 +25,6 @@ arithmetic, ROADMAP.md C.3).
 import json
 import os
 import pathlib
-import socket
 import subprocess
 import sys
 
@@ -121,8 +127,14 @@ for route, on in (("bidir", True), ("symmetric", False)):
                     "screening": series.engine.last_stats}
 np.savez(out, stats=json.dumps(stats, default=str), **res)
 if world:
-    import torch.distributed
+    import gc, os, torch.distributed
+    # the group's last holders: gloo's threads are joined with it
+    del mesh, eng, series
+    gc.collect()
     torch.distributed.destroy_process_group()
+    threads = [open(f"/proc/self/task/{t}/comm").read().strip()
+               for t in os.listdir("/proc/self/task")]
+    assert not [t for t in threads if "gloo" in t], threads
 print("RANK_OK", rank)
 """
 
@@ -366,6 +378,9 @@ np.savez(out, pops3=pops[0.3], pops6=pops[0.6], nh=nn.nh_idx,
          nhd=nn.nh_dist, hd=nn.nhhd_idx, hdd=nn.nhhd_dist,
          clust0=clust[0], clust1=clust[1], reduces=reduces[0])
 if world:
+    import gc
+    del kw  # the mesh, the group's last holder
+    gc.collect()
     dist.destroy_process_group()
 """
 
@@ -417,9 +432,10 @@ def test_cli_two_ranks_write_the_single_rank_files(tmp_path):
         rng.normal((0.0, 0.0), 0.15, size=(90, 2)),
         rng.normal((1.5, 0.4), 0.2, size=(70, 2)),
     ]).astype(np.float32)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
+    # the rendezvous store, held open here on a port the system picked;
+    # both ranks join it as clients
+    store = torch.distributed.TCPStore("localhost", 0, 2, is_master=True,
+                                       wait_for_workers=False)
     code = "import sys; from clustering_tpu_torch import cli; " \
            f"sys.exit(cli.main({_CLI!r}))"
     procs, dirs = [], []
@@ -431,7 +447,9 @@ def test_cli_two_ranks_write_the_single_rank_files(tmp_path):
         env["CLUSTERING_TORCH_DEVICE"] = "cpu"
         if rank is not None:
             env.update({"CLUSTERING_TPU_DISTRIBUTED": "1",
-                        "CLUSTERING_TPU_COORDINATOR": f"localhost:{port}",
+                        "TORCHELASTIC_USE_AGENT_STORE": "True",
+                        "CLUSTERING_TPU_COORDINATOR":
+                            f"localhost:{store.port}",
                         "CLUSTERING_TPU_NUM_PROCESSES": "2",
                         "CLUSTERING_TPU_PROCESS_ID": str(rank)})
         procs.append(subprocess.Popen(
@@ -439,6 +457,7 @@ def test_cli_two_ranks_write_the_single_rank_files(tmp_path):
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         dirs.append(wdir)
     outs = _wait(procs)
+    del store
     assert "[mesh screening fixpoint" not in outs[0][0]
     for out, _ in outs[1:]:
         assert "[mesh screening fixpoint" in out
