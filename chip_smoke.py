@@ -111,6 +111,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      ``precompile_pops``, ``precompile_nn`` and ``series.precompile``
      launch their stages' kernels, and populations, NN and the series
      after them equal phase 6's run.
+ 12. local mesh (``parallel.make_mesh(devices=[...])``, one process
+     driving several devices; cuda:0 named k times on the one card): (a)
+     phase 6's configuration through the engines on meshes of 2 and 4, on
+     both routes: populations, nn ids, nn distances (bit for bit) and the
+     four clusterings equal to phase 6's run of the route, NN's phase 2
+     its mode (the row-side route stays block-bound on a mesh), each
+     stage's shares summing to phase 6's tiles and balanced within one,
+     and the route's kernels launched once per device per call with a
+     non-empty share, no other; (b) run right after phase 8 on phase 5's
+     recorded calls: ``pops_bidir``, ``nn_bidir`` and ``label_min_bidir``
+     on share 1 of 2 of each call's list against their plain versions
+     (exact); (c) the density CLI in this process at phase 5's argv, the
+     visible devices (``parallel.mesh.visible_devices``) patched to cuda:0
+     twice: it meshes them and writes phase 5's files, byte for byte; (d)
+     the engines at N = 2^23 on a mesh of 2: phase 9's results bit for
+     bit, its invariants and sampled exact check, and the peak device
+     memory; (e) where ``nvidia-smi -L`` lists more than one card, the
+     CLI in a process of its own over two real cards against phase 5's
+     files, else a line that says why it did not run. It prints the stage
+     walls, the merges' seconds (each between two synchronizes) and the
+     shares. Co-located devices share one card: the walls are overheads.
 
 The line before the last holds the kernels' JSON record, from phase 8;
 the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
@@ -499,10 +520,12 @@ def phase_kernels(torch):
 
 def run_cli(workdir, coords, device, extra=()):
     """Run the port's density CLI in ``workdir`` on ``device`` with the
-    ``extra`` arguments; returns its stdout (also echoed)."""
+    ``extra`` arguments, on ``coords`` (None: the ``coords.dat`` there);
+    returns its stdout (also echoed)."""
     from clustering_tpu_torch import cli
     os.makedirs(workdir, exist_ok=True)
-    np.savetxt(os.path.join(workdir, "coords.dat"), coords, fmt="%.6f")
+    if coords is not None:
+        np.savetxt(os.path.join(workdir, "coords.dat"), coords, fmt="%.6f")
     cwd = os.getcwd()
     buf = io.StringIO()
     os.environ[cli.DEVICE_ENV] = device
@@ -1304,7 +1327,7 @@ def stage_tiles(stats, share=False):
     return tiles
 
 
-def sampled_check(torch, coords, pops, fe, nn, clust, md2):
+def sampled_check(torch, coords, pops, fe, nn, clust, md2, where="big N"):
     """N_SAMPLE frames drawn with a seeded generator, by a chunked sweep
     over all frames with the kernels' arithmetic (``pairwise.sq_dists``):
     their populations, nearest neighbour and nearest lower-fe neighbour
@@ -1358,7 +1381,7 @@ def sampled_check(torch, coords, pops, fe, nn, clust, md2):
              != np.asarray(nn[2 * side + 1], np.float32)[i].view(np.int32))
             .sum())
     bad["labels"] = int(bad_lab)
-    print(f"[big N] sampled check, {N_SAMPLE} frames against all {n}:"
+    print(f"[{where}] sampled check, {N_SAMPLE} frames against all {n}:"
           f" mismatches {json.dumps(bad)}; {int(absent[1].sum())} of them"
           f" without a lower-fe neighbour, {int(below[rows].sum())} labelled"
           f" at {THRESHOLDS[-1]} with {int(n_adj)} admissible pairs")
@@ -1399,7 +1422,8 @@ def kernel_events(names):
 def phase_big_n(torch):
     """The engines at N_BIG: every stage planned on the device, the three
     bidirectional kernels launched, the output invariants, the sampled
-    exact check and the plan check."""
+    exact check and the plan check. Returns the coordinates and the run's
+    (pops, nn, clusterings), on the host."""
     from clustering_tpu_torch.ops import kernels
     from clustering_tpu_torch.ops.density import free_energies
     coords = synthetic_fel(N_BIG, DIM, seed=0)
@@ -1430,6 +1454,7 @@ def phase_big_n(torch):
     tier_check(torch, f"N={N_BIG}", keep, nn, stats, walls)
     plan_check(torch, f"N={N_BIG}", keep["engine"], keep["series"],
                keep["md2"], nn)
+    return coords, (pops, nn, clust)
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -1453,7 +1478,7 @@ def mesh_rank(rank, world, store, bidir, out):
     pmesh.initialize("cuda:0", backend="gloo", init_method="file://" + store,
                      world_size=world, rank=rank)
     try:
-        mesh = pmesh.make_mesh("cuda:0")
+        mesh = pmesh.make_mesh(devices=["cuda:0"])
         all_reduce = dist.all_reduce
         reduce = []
 
@@ -1623,10 +1648,18 @@ def cli_process(tmp, name, distributed=False, env_extra=None):
     if proc.returncode != 0:
         fail(f"the CLI process {name} exited {proc.returncode}:\n"
              f"{proc.stdout}\n{proc.stderr}")
+    same_files(main_dir, d, f"the CLI process {name}")
+    walls = {m.group(1): float(m.group(2)) for m in
+             re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", proc.stdout)}
+    return proc.stdout, wall, walls
+
+
+def same_files(main_dir, d, what):
+    """Fail unless ``d`` holds the files of phase 5's ``main_dir``, byte
+    for byte but for the time stamp; ``what`` names the run."""
     names = sorted(os.listdir(main_dir))
     if sorted(os.listdir(d)) != names:
-        fail(f"the CLI process {name} wrote {sorted(os.listdir(d))}, not"
-             f" {names}")
+        fail(f"{what} wrote {sorted(os.listdir(d))}, not {names}")
     for file in names:
         lines = []
         for where in (main_dir, d):
@@ -1634,10 +1667,7 @@ def cli_process(tmp, name, distributed=False, env_extra=None):
                 lines.append([ln for ln in fh.read().splitlines()
                               if not ln.startswith(b"# Created ")])
         if lines[0] != lines[1]:
-            fail(f"{file} differs between phase 5 and the CLI process {name}")
-    walls = {m.group(1): float(m.group(2)) for m in
-             re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", proc.stdout)}
-    return proc.stdout, wall, walls
+            fail(f"{file} differs between phase 5 and {what}")
 
 
 def phase_nccl_cli(tmp):
@@ -1852,6 +1882,251 @@ def phase_unpruned(torch, smi):
           f" pruned route; kernels against plain versions {json.dumps(held)}")
 
 
+# -- phase 12 ------------------------------------------------------------------
+
+# the local meshes held on the one card: its device named k times, in
+# turns with the one device (1: no mesh) in the same state of the process
+LOCAL_SIZES = (2, 4)
+LOCAL_TURNS = (1, 2, 4, 1)
+# the per-tile arguments of each bidirectional wrapper, dealt into shares
+PER_TILE = {"pops_bidir": (3, 4, 5), "nn_bidir": (4, 5),
+            "label_min_bidir": (4, 5, 6)}
+
+
+def phase_share_holds(torch, calls, smi):
+    """Phase 12 (b), run right after phase 8 on the calls phase 5 recorded:
+    each bidirectional kernel on share 1 of 2 of every call's tile list
+    (``pruning.split_tiles_balanced``, as a local mesh of two deals it)
+    against its plain version on the same inputs, exact."""
+    from clustering_tpu_torch.ops import kernels, pruning
+    held = {}
+    for name in BIDIR_KERNELS:
+        rec = []
+        for args, kw in calls[name]:
+            args = list(args)
+            share = pruning.split_tiles_balanced(
+                tuple(args[i] for i in PER_TILE[name]), 1, 2)
+            for i, t in zip(PER_TILE[name], share):
+                args[i] = t
+            rec.append((tuple(args), kw))
+        got, ms = replay(torch, name, getattr(kernels, name), rec)
+        want, plain_ms = replay(torch, name,
+                                getattr(kernels, name + "_plain"), rec)
+        bad, err = compare_outputs(torch, got, want)
+        if bad:
+            fail(f"{name} disagrees with its plain version on share 1 of 2"
+                 f" of phase 5's calls ({bad} elements)")
+        held[name] = {"calls": len(rec),
+                      "tiles": sum(len(args[PER_TILE[name][0]])
+                                   for args, _ in rec),
+                      "ms": round(ms, 3), "plain_ms": round(plain_ms, 3),
+                      "max_abs_err": err}
+    print(f"[local mesh] {smi}: share 1 of 2 of phase 5's calls, kernels"
+          f" against plain versions (exact) {json.dumps(held)}")
+
+
+@contextlib.contextmanager
+def timed_merges(torch):
+    """Every merge of a local mesh (``LocalMesh.sum`` and ``.min``) timed
+    between two synchronizes while the block runs; yields {"calls": n,
+    "seconds": s}."""
+    from clustering_tpu_torch.parallel.mesh import LocalMesh
+    tally = {"calls": 0, "seconds": 0.0}
+    saved = {name: getattr(LocalMesh, name) for name in ("sum", "min")}
+
+    def timed(fn):
+        def merge(self, parts):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, parts)
+            torch.cuda.synchronize()
+            tally["seconds"] += time.perf_counter() - t0
+            tally["calls"] += 1
+            return out
+        return merge
+
+    for name, fn in saved.items():
+        setattr(LocalMesh, name, timed(fn))
+    try:
+        yield tally
+    finally:
+        for name, fn in saved.items():
+            setattr(LocalMesh, name, fn)
+
+
+def mesh_launches(route_kernels, stats):
+    """The launches a local mesh's run must make, from its ``stats``: per
+    stage call, one per device with a non-empty share."""
+    nonempty = [sum(1 for n in shares if n)
+                for shares in stage_tiles(stats, share=True).values()]
+    n_pops, n_band, n_phase2 = nonempty[:3]
+    sweeps = sum(stats[f"screening {t}"]["sweeps"] * n
+                 for t, n in zip(THRESHOLDS, nonempty[3:]))
+    return dict(zip(route_kernels, (n_pops, n_band + n_phase2, sweeps)))
+
+
+def phase_local_mesh(torch, runs, smi):
+    """Phase 12 (a): phase 6's configuration through the engines on local
+    meshes over cuda:0 named 2 and 4 times, on both routes, against phase
+    6's runs (``runs``), in turns with the one device (LOCAL_TURNS) on NN's
+    phase 2 of the meshes, for stage walls taken in one state."""
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.parallel import make_mesh
+    coords = synthetic_fel(N_MAIN, DIM, seed=0)
+    for route, bidir in (("bidir", True), ("symmetric", False)):
+        pops, nn, clust, _, _, _, stats = runs[route]
+        want_tiles = stage_tiles(stats)
+        # the bidirectional list tiers as on one device; the row-side
+        # route sweeps block-bound on a mesh
+        want_nn = stats["nearest neighbors" if bidir else "nn block-bound"]
+        want_tiles["nn phase 2"] = want_nn["phase2_tiles"]
+        on, off = ((BIDIR_KERNELS, SPARSE_KERNELS) if bidir
+                   else (SPARSE_KERNELS, BIDIR_KERNELS))
+        turns = []
+        for k in LOCAL_TURNS:
+            tag = f"[local mesh] cuda:0 x {k}, {route}"
+            st = {}
+            qs = "auto" if bidir else DensityEngine.TIER_QS_DEFAULT
+            mesh = None if k == 1 else make_mesh(devices=["cuda:0"] * k)
+            if mesh is None and not bidir:
+                qs = None  # the meshes' block-bound phase 2
+            with bidir_switches(bidir), timed_merges(torch) as merges:
+                kernels.reset_launches()
+                out = run_engines(torch, coords, st, mesh=mesh, tier_qs=qs)
+                launches = {name: kernels.LAUNCHES[name]
+                            for name in on + off}
+            turns.append((k, out[3]))
+            same_results(out, (pops, nn, clust),
+                         f"the local mesh of {k} ({route}) and phase 6")
+            if mesh is None:
+                continue
+            shares = stage_tiles(st, share=True)
+            print(f"{tag}: {smi}; N={N_MAIN} D={DIM}, stages"
+                  f" {json.dumps(out[3])}; {merges['calls']} merges in"
+                  f" {merges['seconds']:.4f}s; shares {json.dumps(shares)};"
+                  f" launches {json.dumps(launches)}")
+            if set(out[4].values()) != {route + "-mesh"}:
+                fail(f"{tag}: another route was taken: {out[4]}")
+            if st["nearest neighbors"]["mode"] != want_nn["mode"]:
+                fail(f"{tag}: NN phase 2 was"
+                     f" {st['nearest neighbors']['mode']}, not"
+                     f" {want_nn['mode']}")
+            for stage, total in want_tiles.items():
+                got = shares[stage]
+                if (len(got) != k or sum(got) != total
+                        or max(got) - min(got) > 1):
+                    fail(f"{tag}: {stage} shares {got} do not split its"
+                         f" {total} tiles over {k} devices")
+            want = dict(mesh_launches(on, st), **{name: 0 for name in off})
+            if launches != want:
+                fail(f"{tag}: launches {launches}, not one per device per"
+                     f" call with a non-empty share: {want}")
+        print(f"[local mesh] {route}: stage walls in turns, devices"
+              f" {'/'.join(str(k) for k, _ in turns)}: " + json.dumps(
+                  {stage: "/".join(f"{w[stage]:.3f}" for _, w in turns)
+                   for stage in turns[0][1]}))
+        print(f"[local mesh] {route}: populations, nn ids, nn distances (bit"
+              f" for bit) and {len(THRESHOLDS)} clusterings identical to"
+              f" phase 6 on {' and '.join(map(str, LOCAL_SIZES))} devices;"
+              f" shares sum to phase 6's tiles {json.dumps(want_tiles)}")
+
+
+def phase_local_cli(torch, tmp):
+    """Phase 12 (c): the density CLI in this process at phase 5's argv on
+    its coordinates, the visible devices (``parallel.mesh.
+    visible_devices``) patched to cuda:0 twice: it must mesh them and
+    write phase 5's files, byte for byte."""
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.parallel import mesh as pmesh
+    d = os.path.join(tmp, "local_cli")
+    os.makedirs(d)
+    os.link(os.path.join(tmp, "main", "coords.dat"),
+            os.path.join(d, "coords.dat"))
+    saved = pmesh.visible_devices
+    pmesh.visible_devices = lambda device="cuda": [torch.device("cuda",
+                                                                0)] * 2
+    try:
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = run_cli(d, None, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        pmesh.visible_devices = saved
+    if "~~~ mesh of 2 devices: cuda:0, cuda:0" not in out:
+        fail("the CLI did not mesh the patched devices")
+    if out.count("[mesh screening fixpoint") < len(THRESHOLDS):
+        fail("the CLI's screening did not run on the mesh")
+    same_files(os.path.join(tmp, "main"), d,
+               "the CLI on a local mesh of cuda:0 x 2")
+    walls = {m.group(1): float(m.group(2))
+             for m in re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", out)}
+    launches = {name: kernels.LAUNCHES[name] for name in BIDIR_KERNELS}
+    print(f"[local mesh] CLI in-process on cuda:0 x 2: {wall:.3f}s, stages"
+          f" {json.dumps(walls)}, launches {json.dumps(launches)}; files"
+          " byte-identical to phase 5's")
+
+
+def phase_local_big(torch, big, smi):
+    """Phase 12 (d): the engines at N_BIG on a local mesh of cuda:0 twice,
+    default route: phase 9's results bit for bit, its invariants and its
+    sampled exact check, and the peak device memory."""
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.density import free_energies
+    from clustering_tpu_torch.parallel import make_mesh
+    coords, want = big
+    torch.cuda.reset_peak_memory_stats()
+    stats, keep = {}, {}
+    with timed_merges(torch) as merges:
+        kernels.reset_launches()
+        pops, nn, clust, walls, modes = run_engines(
+            torch, coords, stats, keep,
+            mesh=make_mesh(devices=["cuda:0"] * 2))
+        launches = {name: kernels.LAUNCHES[name] for name in BIDIR_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[local mesh] cuda:0 x 2, N={N_BIG} D={DIM}: {smi}; stages"
+          f" {json.dumps(walls)}; {merges['calls']} merges in"
+          f" {merges['seconds']:.4f}s; shares"
+          f" {json.dumps(stage_tiles(stats, share=True))}; launches"
+          f" {json.dumps(launches)}; max_memory_allocated {peak} bytes")
+    if set(modes.values()) != {"bidir-mesh"}:
+        fail(f"the local mesh at N={N_BIG} took another route: {modes}")
+    if launches != mesh_launches(BIDIR_KERNELS, stats):
+        fail(f"the local mesh at N={N_BIG} launched {launches}")
+    same_results((pops, nn, clust), want,
+                 f"the local mesh of 2 and phase 9 at N={N_BIG}")
+    fe = free_energies(pops)
+    check_outputs("local mesh", N_BIG, pops, fe, np.stack([nn[0], nn[2]], 1),
+                  np.stack([nn[1], nn[3]], 1), clust[-1])
+    sampled_check(torch, coords, pops, fe, nn, clust[-1], keep["md2"],
+                  where="local mesh")
+
+
+def phase_two_cards(tmp, all_cards):
+    """Phase 12 (e): where ``nvidia-smi -L`` lists more than one card, the
+    density CLI in a process of its own over two real cards (the first two
+    of ``all_cards``, the CUDA_VISIBLE_DEVICES the script was started
+    with, else 0 and 1) against phase 5's files; else say why not."""
+    listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
+                            text=True, check=True).stdout.split("\n")
+    listed = [ln for ln in listed if ln.startswith("GPU ")]
+    cards = (all_cards.split(",") if all_cards
+             else [str(i) for i in range(len(listed))])
+    if len(listed) < 2 or len(cards) < 2:
+        print(f"[local mesh] two real cards: not run: nvidia-smi -L lists"
+              f" {len(listed)} card(s), {len(cards)} of them visible to this"
+              " run")
+        return
+    pair = ",".join(cards[:2])
+    out, wall, walls = cli_process(tmp, "two_cards",
+                                   env_extra={"CUDA_VISIBLE_DEVICES": pair})
+    if "~~~ mesh of 2 devices: cuda:0, cuda:1" not in out:
+        fail("the CLI over two cards did not mesh them")
+    print(f"[local mesh] CLI process over cards {pair}: {wall:.3f}s, stages"
+          f" {json.dumps(walls)}; files byte-identical to phase 5's")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -1859,6 +2134,7 @@ def main():
         print(f"[time] phases {phases} done at"
               f" {time.perf_counter() - t_start:.1f}s", flush=True)
 
+    all_cards = os.environ.get("CUDA_VISIBLE_DEVICES")
     torch, smi = phase_device()
     phase_build()
     phase_kernels(torch)
@@ -1882,9 +2158,10 @@ def main():
         lap("6-7")
         record = {"kernels": phase_main_path_kernels(torch, calls, launches,
                                                      smi)}
+        phase_share_holds(torch, calls, smi)
         del calls, sym_calls, tiles_calls
-        lap("8")
-        phase_big_n(torch)
+        lap("8, 12 (b)")
+        big = phase_big_n(torch)
         lap("9")
         phase_mesh(torch, runs, tmp, smi)
         lap("10")
@@ -1894,6 +2171,12 @@ def main():
         del main_inputs
         phase_unpruned(torch, smi)
         lap("11")
+        phase_local_mesh(torch, runs, smi)
+        phase_local_cli(torch, tmp)
+        phase_local_big(torch, big, smi)
+        del big
+        phase_two_cards(tmp, all_cards)
+        lap("12")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

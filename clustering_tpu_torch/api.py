@@ -15,10 +15,12 @@
 
 All functions take and return numpy arrays. The last five run on the host
 (the port's own copies of the JAX package's host models) and take no
-device. The device stages take the JAX package's ``mesh=``: a
-``parallel.make_mesh()`` over the ranks of an initialised process group,
-each calling with the same arguments and getting the whole result; the
-device then defaults to the mesh's.
+device. The device stages take the JAX package's ``mesh=``, either kind
+that ``parallel.make_mesh()`` builds: in a plain process a mesh over every
+visible card (or over ``devices=[...]``), whose shares this process
+launches and merges; inside an initialised process group the mesh of its
+ranks, each calling with the same arguments. Either way the caller gets
+the whole result, and the device defaults to the mesh's (primary) one.
 """
 
 from collections import namedtuple
@@ -42,7 +44,7 @@ MppResult = namedtuple(
 
 
 def _device(device, mesh):
-    """``device``, else the mesh's, else "cuda"."""
+    """``device``, else the mesh's primary device, else "cuda"."""
     if device is not None:
         return device
     return "cuda" if mesh is None else mesh.device

@@ -7,14 +7,19 @@ stages on the engines of :mod:`clustering_tpu_torch.ops`. The pure-numpy
 helpers are copies of the JAX module's: it imports its ``ops`` package and
 through it jax.
 
+The run meshes as the JAX CLI does (:func:`run_mesh`): inside a process
+group (the CLI has joined one, ``parallel.mesh.initialize``) over its
+ranks, each rank writing the same files in its own working directory;
+else over every visible card when there is more than one, from this one
+process, which writes each file once; else on one device.
+
 When nearest neighbours follow populations, populations starts the NN
 band pass (``nn_band_radius``) and the screening series' screener is
 built on the write pool while NN runs, its lower-fe edges attached after
-it, as in the JAX CLI; in a distributed run (the CLI has joined a process
-group, ``parallel.mesh.initialize``) both stay on the main thread, every
-stage is dealt over the group's ranks and every rank writes the same
-files in its own working directory. ``CLUSTERING_TPU_PROFILE_SUBSTAGES``
-adds each device stage's sub-stage times to the ``-v`` log.
+it, as in the JAX CLI; on a mesh both stay on the main thread and every
+stage is dealt over the mesh's devices.
+``CLUSTERING_TPU_PROFILE_SUBSTAGES`` adds each device stage's sub-stage
+times to the ``-v`` log.
 
 On a CUDA device without a mesh, daemon threads pay each stage's
 first-use costs ahead of it, where the JAX CLI warms its compiles: the
@@ -35,7 +40,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch.distributed as dist
 
-from ..parallel.mesh import make_mesh
+from ..parallel import mesh as pmesh
 from ..utils import io
 from ..utils.logger import logger
 from ..ops import density as dops
@@ -236,13 +241,29 @@ def _precompile_on(engine):
             and os.environ.get("CLUSTERING_TPU_PRECOMPILE") != "0")
 
 
+def run_mesh(device):
+    """The density run's mesh, by the JAX CLI's rule: the process group's
+    when one is initialised (this rank on ``device``); else, when more
+    than one device is visible for ``device``
+    (``parallel.mesh.visible_devices``: every card for a bare "cuda"), a
+    local mesh over all of them; else None."""
+    if dist.is_initialized():
+        return pmesh.make_mesh(devices=[device])
+    devices = pmesh.visible_devices(device)
+    return pmesh.make_mesh(devices=devices) if len(devices) > 1 else None
+
+
 def main(args, header_comment, comments_map, device, device_warm=None):
-    """density mode on ``device``, over the ranks of the process group
-    when one is initialised. ``device_warm``, if given, is a dict whose
-    entries (the CLI's first-op warm, ``t_device_warm``) join the
-    populations sub-stage line."""
+    """density mode on ``device``, or on the mesh of :func:`run_mesh`.
+    ``device_warm``, if given, is a dict whose entries (the CLI's first-op
+    warm, ``t_device_warm``) join the populations sub-stage line."""
     coords = io.read_coords(args.file)
-    mesh = make_mesh(device) if dist.is_initialized() else None
+    mesh = run_mesh(device)
+    if mesh is not None:
+        device = mesh.device
+        if not dist.is_initialized():
+            logger(f"~~~ mesh of {mesh.size} devices: "
+                   + ", ".join(map(str, mesh.devices)))
     engine = DensityEngine(coords, device=device, mesh=mesh)
     free_energy = None
     # the pops / fe / nn files are written on worker threads while the

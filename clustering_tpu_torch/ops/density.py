@@ -19,12 +19,12 @@ from .pairwise import sq_dists
 
 def populations(coords, radii, row_block=DEFAULT_ROW_BLOCK,
                 col_block=DEFAULT_COL_BLOCK, backend="auto", prune=True,
-                device="cuda", mesh=None):
+                device=None, mesh=None):
     """Neighbour populations for each radius: dict radius -> (N,) int64
-    (self included), on ``device``.
+    (self included), on ``device`` (default "cuda", or the mesh's).
 
     ``backend`` "auto" or "pallas": through :class:`DensityEngine`, over
-    the ranks of ``mesh`` if given, its tile list pruned unless ``prune``
+    the devices of ``mesh`` if given, its tile list pruned unless ``prune``
     is False (``DensityEngine.populations``). "xla": the dense plain
     version (:func:`populations_dense`, no mesh), which is what the JAX
     package's XLA route computes. Anything else raises ValueError."""

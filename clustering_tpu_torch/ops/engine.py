@@ -10,11 +10,16 @@ mask and tile list on the device (``pruning.*_device``); the symmetric
 ones bring the bool planes to the host, where numpy plans the flat tile
 lists, as in the JAX package. Both give the same tiles in the same order.
 
-With a mesh (``parallel.mesh``), every rank plans the same lists and
-sweeps its round-robin share of each (``pruning.split_tiles_balanced``);
-the partial counts merge by a SUM over the ranks, the NN keys by a MIN
-after each pass, so every rank holds the whole result (the counterpart of
-the JAX engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``).
+With a mesh (``parallel.mesh``), each list is dealt round-robin over the
+mesh's devices (``pruning.split_tiles_balanced``) and each device sweeps
+its share on copies of its own of the layout; the partial counts merge by
+a SUM, the NN keys by a MIN after each pass (the counterpart of the JAX
+engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``). On a local
+mesh this process plans once on the primary device, launches every
+device's share, then merges there; on a process group's mesh every rank
+plans the same lists, sweeps its own share and merges by ``all_reduce``.
+Either way the caller holds the whole result. Without a mesh the engine
+runs the same code over one device.
 """
 
 import os
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import pmin_, psum_
+from ..parallel.mesh import LocalMesh
 from ..utils import textio_native
 from ..utils.logger import is_verbose, logger
 from . import kernels, pruning
@@ -38,11 +43,11 @@ NN_BAND_ORDER = "morton"
 
 
 def resolve_device(device):
-    """torch.device for ``device``; a CUDA device must exist (there is no
-    silent CPU fallback). In an initialised process group a bare "cuda" is
-    the rank's card, ``cuda:LOCAL_RANK % device_count`` (the rank when
-    LOCAL_RANK is unset)."""
-    device = torch.device(device)
+    """torch.device for ``device`` (None: "cuda"); a CUDA device must exist
+    (there is no silent CPU fallback). In an initialised process group a
+    bare "cuda" is the rank's card, ``cuda:LOCAL_RANK % device_count`` (the
+    rank when LOCAL_RANK is unset)."""
+    device = torch.device("cuda" if device is None else device)
     if device.type != "cuda":
         return device
     if not torch.cuda.is_available():
@@ -52,6 +57,29 @@ def resolve_device(device):
         local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
         device = torch.device("cuda", local % torch.cuda.device_count())
     return device
+
+
+def engine_device(device, mesh):
+    """An engine's device: ``device`` resolved (:func:`resolve_device`;
+    None: "cuda"), or on a mesh the mesh's primary device, which
+    ``device`` may name but not contradict (another type or card raises
+    ValueError)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is None:
+        return mesh.device
+    want, have = torch.device(device), mesh.device
+    if want.type != have.type or want.index not in (None, have.index):
+        raise ValueError(f"device={str(device)!r} is not the mesh's device"
+                         f" {have}")
+    return have
+
+
+def per_device_tiles(mesh, counts):
+    """``last_stats``' ``per_device_tiles`` of the share sizes ``counts``
+    (one per device this process sweeps on): the list on a local mesh,
+    this rank's count on a group's."""
+    return counts if isinstance(mesh, LocalMesh) else counts[0]
 
 
 def resolve_backend(backend, dense=False, mesh=None):
@@ -203,13 +231,14 @@ class DensityEngine:
 
     ``backend`` is the JAX engine's: "auto" and "pallas" select the
     tile-sweep route, which is the only one; anything else raises
-    ValueError. The device is ``device``.
+    ValueError. The device is ``device`` (default "cuda", or the mesh's).
 
-    With a ``mesh`` (``parallel.mesh.Mesh``) each rank sweeps its share of
-    every tile list on ``device`` and the results merge over the ranks;
-    ``last_stats`` then says ``mode`` (NN: ``route``) "bidir-mesh" or
-    "symmetric-mesh", with ``mesh_devices`` and this rank's
-    ``per_device_tiles``."""
+    With a ``mesh`` (``parallel.make_mesh``: a local mesh or a process
+    group's) each device sweeps its share of every tile list and the
+    results merge on the mesh's primary device, which is the engine's
+    (``device`` may name it); ``last_stats`` then says ``mode`` (NN:
+    ``route``) "bidir-mesh" or "symmetric-mesh", with ``mesh_devices`` and
+    the shares' sizes, ``per_device_tiles`` (:func:`per_device_tiles`)."""
 
     POPS_BIDIR = True
     NN_BIDIR = True
@@ -218,10 +247,12 @@ class DensityEngine:
 
     def __init__(self, coords, row_block=DEFAULT_ROW_BLOCK,
                  col_block=DEFAULT_COL_BLOCK, backend="auto", mesh=None,
-                 device="cuda"):
+                 device=None):
         resolve_backend(backend)
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
         self.mesh = mesh
+        # the devices the sweeps run on: one without a mesh
+        self._spread = LocalMesh((self.device,)) if mesh is None else mesh
         self.row_block = row_block
         self.col_block = col_block
         self.coords = np.ascontiguousarray(coords, dtype=np.float32)
@@ -292,6 +323,12 @@ class DensityEngine:
             return self._put(oid)
         return self._cached(("oid", name), make)
 
+    def _layout_copies(self, fn, name):
+        """``fn(name)`` (:meth:`coords_t`, :meth:`oid`) for each device of
+        the mesh, each device's its own; cached."""
+        return self._cached((fn.__name__ + "*", name),
+                            lambda: self._spread.copies(fn(name)))
+
     def d2b(self, name):
         """(nrb, ncb) bbox distance lower bounds of layout ``name``."""
         return self._cached(("d2b", name), lambda: pruning.bbox_d2(
@@ -314,13 +351,20 @@ class DensityEngine:
         return {key: route + "-mesh", "plan": plan,
                 "mesh_devices": self.mesh.size}
 
-    def _share(self, tiles):
-        """This rank's share of the per-tile tensors ``tiles``: all of
-        them without a mesh."""
-        if self.mesh is None:
-            return tiles
-        return pruning.split_tiles_balanced(tiles, self.mesh.rank,
-                                            self.mesh.size)
+    def _shares(self, tiles, stats, stage=None):
+        """[(device, its share of the per-tile tensors ``tiles``)], one
+        entry per device this process sweeps on (all of ``tiles`` without
+        a mesh). On a mesh the share sizes go to
+        ``stats["per_device_tiles"]`` (``[stage]`` if given)."""
+        shares = self._spread.shares(tiles)
+        if self.mesh is not None:
+            counts = per_device_tiles(self.mesh,
+                                      [len(s[0]) for _, s in shares])
+            if stage is None:
+                stats["per_device_tiles"] = counts
+            else:
+                stats["per_device_tiles"][stage] = counts
+        return shares
 
     def _log_stats(self, stage, tiles, what=""):
         if is_verbose() and not self._quiet:
@@ -397,24 +441,22 @@ class DensityEngine:
         radii2 = self._put(np.asarray(
             [np.float32(r) * np.float32(r) for r in radii], np.float32))
         stats["computed_tiles"] = int(len(ti))
-        ti, tj, rmask = self._share((ti, tj, rmask))
-        if self.mesh is not None:
-            stats["per_device_tiles"] = int(len(ti))
+        shares = self._shares((ti, tj, rmask), stats)
         stats["t_plan"] = time.perf_counter() - t0
         self._log_stats("pops", stats["computed_tiles"])
         t0 = time.perf_counter()
-        ct = self.coords_t(name)
-        args = (radii2, self.n, ti, tj, rmask, self.row_block,
-                self.col_block)
-        if bidir:
-            counts = kernels.pops_bidir(ct, *args)
-        else:
-            # the self pair (d2 = 0) counts in its diagonal tile, which
-            # one rank sweeps
-            counts = kernels.pops_sparse(ct, ct, *args)
-        if self.mesh is not None:
-            psum_(counts, self.mesh)
-        counts = counts[:, :self.n]
+        parts = []
+        for ct, r2, (_, share) in zip(self._layout_copies(self.coords_t,
+                                                          name),
+                                      self._spread.copies(radii2), shares):
+            args = (r2, self.n) + share + (self.row_block, self.col_block)
+            if bidir:
+                parts.append(kernels.pops_bidir(ct, *args))
+            else:
+                # the self pair (d2 = 0) counts in its diagonal tile, which
+                # one device sweeps
+                parts.append(kernels.pops_sparse(ct, ct, *args))
+        counts = self._spread.sum(parts)[:, :self.n]
         if bidir:
             counts = counts + 1  # each frame's self count, once
         counts_band = None
@@ -463,30 +505,39 @@ class DensityEngine:
     def _nn_sweep(self, rows, tiles, keys, bidir, stats, stage, cols=None):
         """Sweep ``tiles`` (device (ti, tj) or None) -- an upper-triangular
         closure swept bidirectionally, or any mask's list swept row-side --
-        folding into the id-keyed ``keys``; ``rows`` and ``cols`` are the
-        (coords_t, fe, oid) device tensors of the rows and the columns
-        (``cols`` None: the rows'). On a mesh, this rank's share, then the
-        keys' MIN over the ranks. Sets ``stats[stage + "_tiles"]`` to the
-        list's length and, on a mesh, ``stats["per_device_tiles"][stage]``
-        to the share's (both stay 0 without a list)."""
+        folding into the id-keyed ``keys``; ``rows`` and ``cols`` hold the
+        (coords_t, fe, oid) tensors of the rows and the columns for each
+        device (``cols`` None: the rows'). Each device folds its share into
+        a copy of ``keys`` of its own, all taken before the first launch,
+        and the copies merge into ``keys`` by a MIN. Sets
+        ``stats[stage + "_tiles"]`` to the list's length and, on a mesh,
+        ``stats["per_device_tiles"][stage]`` to the shares' (both stay 0
+        without a list)."""
         if tiles is None:
             return
         stats[stage + "_tiles"] = len(tiles[0])
-        ti, tj = self._share(tiles)
-        if self.mesh is not None:
-            stats["per_device_tiles"][stage] = len(ti)
-        if bidir:
-            kernels.nn_bidir(*rows, self.n, ti, tj, keys, self.row_block,
-                             self.col_block)
-        else:
-            kernels.nn_sparse(*rows, *(cols or rows), self.n, ti, tj, keys,
-                              self.row_block, self.col_block)
-        if self.mesh is not None:
-            pmin_(keys, self.mesh)
+        shares = self._shares(tiles, stats, stage)
+        parts = self._spread.copies(keys)
+        for k, (_, (ti, tj)) in enumerate(shares):
+            if bidir:
+                kernels.nn_bidir(*rows[k], self.n, ti, tj, parts[k],
+                                 self.row_block, self.col_block)
+            else:
+                kernels.nn_sparse(*rows[k], *(cols or rows)[k], self.n, ti,
+                                  tj, parts[k], self.row_block,
+                                  self.col_block)
+        self._spread.min(parts)
 
     def _nn_rows(self, name, fe_l):
-        """(coords_t, fe, oid) of layout ``name`` on the device."""
-        return self.coords_t(name), fe_l, self.oid(name)
+        """(coords_t, fe, oid) of layout ``name`` for each device; ``fe_l``
+        is its fe on the engine's device."""
+        return list(zip(self._layout_copies(self.coords_t, name),
+                        self._spread.copies(fe_l),
+                        self._layout_copies(self.oid, name)))
+
+    def _row_copies(self, rows):
+        """The (coords_t, fe, oid) tensors ``rows`` for each device."""
+        return list(zip(*(self._spread.copies(t) for t in rows)))
 
     def nn_band_mask(self, bidir=True, band_blocks=NN_BAND_BLOCKS):
         """The band pass's tile mask and the mask it sweeps: on the device,
@@ -668,7 +719,8 @@ class DensityEngine:
 
     def _nn_tiered_plan(self, rows, keys, tier_qs, bidir):
         """Phase 2 re-sorted by (ub-quantile tier, position in the winner
-        layout ``rows`` = (coords_t, fe, oid)), each row block bounded by
+        layout ``rows``, its (coords_t, fe, oid) for each device, the
+        engine's first), each row block bounded by
         its largest tier's quantile: far fewer pairs than the block-bound
         plan when a few frames with distant lower-fe neighbours would
         widen whole row blocks (the JAX engine's ``_nn_tiered_plan`` and
@@ -676,20 +728,21 @@ class DensityEngine:
         distances in ``keys``. Bidirectional: every frame re-sorted, the
         active mask closed upper-triangularly on the device; row-side: only
         the rows re-sorted, against the winner's columns, the list planned
-        on the host. Returns (rows, cols, tiles): the sweep's rows, its
-        columns (None: the rows') and its tile list (or None)."""
+        on the host. Returns (rows, cols, tiles): the sweep's rows on the
+        engine's device, its columns for each device (None: the rows') and
+        its tile list (or None)."""
         rb, cb = self.row_block, self.col_block
         n_tiers = len(tier_qs) + 1
         d_band, _ = kernels.unpack_keys(keys)
         tier, taus = _ub_tiers(d_band, self.n, tuple(tier_qs))
-        tier_w, perm = _tier_sort_perm(tier, rows[2], self.n, n_tiers)
+        tier_w, perm = _tier_sort_perm(tier, rows[0][2], self.n, n_tiers)
         if bidir:
-            *t_rows, active = _tiered_layout_sym(*rows, tier_w, taus, perm,
-                                                 rb, cb, n_tiers)
+            *t_rows, active = _tiered_layout_sym(*rows[0], tier_w, taus,
+                                                 perm, rb, cb, n_tiers)
             return tuple(t_rows), None, self._tiles(
                 pruning.bidir_closure_device(active, rb, cb))
-        *t_rows, active = _tiered_layout(*rows, tier_w, taus, perm, rb, cb,
-                                         n_tiers)
+        *t_rows, active = _tiered_layout(*rows[0], tier_w, taus, perm, rb,
+                                         cb, n_tiers)
         return tuple(t_rows), rows, self._tiles(active.cpu().numpy())
 
     def _nn_tier_qs(self, tier_qs, block_tiles, bidir):
@@ -746,8 +799,8 @@ class DensityEngine:
         three disjoint times: ``t_plan`` (building masks and tile lists),
         ``t_band`` (the band sweep, or the wait for its prefetch, and the
         order choice) and ``t_sweep`` (phase 2's sweep and the readback);
-        on a mesh, ``per_device_tiles`` is this rank's share of each pass,
-        {"band": .., "phase2": ..}."""
+        on a mesh, ``per_device_tiles`` holds each pass's shares,
+        {"band": .., "phase2": ..} (:func:`per_device_tiles`)."""
         fe = np.asarray(free_energy, dtype=np.float32)
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
@@ -757,7 +810,9 @@ class DensityEngine:
         stats.update(bidir=bidir, mode="dense", band_prefetched=False,
                      band_tiles=0, phase2_tiles=0, t_plan=0.0)
         if self.mesh is not None:
-            stats["per_device_tiles"] = {"band": 0, "phase2": 0}
+            none = per_device_tiles(self.mesh,
+                                    [0] * len(self._spread.devices))
+            stats["per_device_tiles"] = {"band": none, "phase2": none}
         banded = prune and ncb > 2 * band_blocks
 
         t0 = time.perf_counter()
@@ -810,7 +865,8 @@ class DensityEngine:
                 saved = (block_tiles - est) * float(rb * cb)
                 if tier_qs != "auto" or saved > self.TIERED_MIN_SAVED_PAIRS:
                     stats["mode"] = "tiered"
-                    rows, cols, tiles = t_rows, t_cols, t_tiles
+                    rows, cols, tiles = (self._row_copies(t_rows), t_cols,
+                                         t_tiles)
                 del t_rows, t_cols, t_tiles
         self._nn_sweep(rows, tiles, keys, bidir, stats, "phase2", cols=cols)
         del rows, cols, tiles

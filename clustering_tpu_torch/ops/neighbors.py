@@ -25,12 +25,12 @@ _INF = float("inf")
 
 def nearest_neighbors(coords, free_energy, row_block=DEFAULT_ROW_BLOCK,
                       col_block=DEFAULT_COL_BLOCK, backend="auto",
-                      prune=True, device="cuda", mesh=None):
+                      prune=True, device=None, mesh=None):
     """Returns (nh_idx, nh_d2, nhhd_idx, nhhd_d2) numpy arrays of len N,
-    on ``device``.
+    on ``device`` (default "cuda", or the mesh's).
 
     ``backend`` "auto" or "pallas": through :class:`DensityEngine`, over
-    the ranks of ``mesh`` if given, with the two-phase pruning unless
+    the devices of ``mesh`` if given, with the two-phase pruning unless
     ``prune`` is False (``DensityEngine.nearest_neighbors``). "xla": the
     dense plain version (:func:`nearest_neighbors_dense`, no mesh).
     Anything else raises ValueError."""

@@ -27,9 +27,9 @@ ported from the JAX package:
 - the chunk buckets and ``quantize_chunks`` of ``_tile_list_dev_call``:
   they exist for XLA's static shapes, and so do the lists' pads;
 - ``act_rows_bool_device``: one comparison, inlined in the engine;
-- ``tile_list_device_split``: the device list dealt over ranks, padded to
-  a common XLA shape; here a rank slices its share of the device list
-  (:func:`split_tiles_balanced`);
+- ``tile_list_device_split``: the device list dealt over the mesh, padded
+  to a common XLA shape; here each device's share is a slice of the
+  device list (:func:`split_tiles_balanced`);
 - ``iter_col_windows``: the column windows, for the reason above.
 
 Pruning is exact: a tile is skipped only when its bounding-box distance
@@ -246,12 +246,13 @@ def tile_list_device(active):
 
 
 def split_tiles_balanced(tiles, rank, size):
-    """This rank's share of a flat row-major tile list dealt round-robin
-    over ``size`` ranks: entries ``rank, rank + size, ...`` of each tensor
-    of ``tiles`` (ti, tj and any per-tile arrays), contiguous, on their
-    device. The shares are balanced within one tile, each stays row-major
-    sorted, and any rank may sweep any tile, since the partial results
-    merge by a SUM or MIN over the ranks (``parallel.mesh``).
+    """Share ``rank`` of a flat row-major tile list dealt round-robin over
+    the ``size`` devices of a mesh (a local mesh's, or a group's ranks):
+    entries ``rank, rank + size, ...`` of each tensor of ``tiles`` (ti, tj
+    and any per-tile arrays), contiguous, on their device. The shares are
+    balanced within one tile, each stays row-major sorted, and any device
+    may sweep any tile, since the partial results merge by a SUM or MIN
+    (``parallel.mesh``).
 
     Counterpart of ``clustering_tpu.ops.pruning.split_tiles_balanced``
     without its pads and chunk buckets, which exist for XLA's static

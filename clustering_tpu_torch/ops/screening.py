@@ -21,11 +21,15 @@ reach the same fixpoint:
 The bidirectional sweep's tile lists are planned on the device, the
 symmetric sweep's on the host (the same tiles in the same order).
 
-With a mesh (``parallel.mesh``), every rank sweeps its round-robin share
-of the list and the swept labels (bidir) or proposals (symmetric) merge
-by a MIN over the ranks before the union, which then runs on identical
-tensors on every rank: convergence needs no other collective (the
-counterpart of the JAX package's ``_screening_sharded_pallas_bidir``).
+With a mesh (``parallel.mesh``), each device sweeps its round-robin share
+of the list against copies of its own of the coordinates, the labels and
+the dirty flags, and the swept labels (bidir) or proposals (symmetric)
+merge by a MIN before the union (the counterpart of the JAX package's
+``_screening_sharded_pallas_bidir``). On a local mesh the union runs once,
+on the primary device, and the labels and flags go back out to the
+devices for the next sweep; on a group's mesh it runs on identical
+tensors on every rank, so convergence needs no other collective. Every
+device's share is launched before the sweep's one readback.
 """
 
 import time
@@ -35,10 +39,11 @@ import torch
 
 from ..utils.logger import is_verbose, logger
 
-from ..parallel.mesh import pmin_
+from ..parallel.mesh import LocalMesh
 from . import kernels, pruning
-from .engine import (DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, resolve_backend,
-                     resolve_device, warm_failed, warm_on)
+from .engine import (DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, engine_device,
+                     per_device_tiles, resolve_backend, warm_failed,
+                     warm_on)
 
 
 def pointer_jump(table):
@@ -91,7 +96,8 @@ class ScreeningEngine:
     is on (the counterpart of the JAX engine's ``BIDIR_UNION_VMEM``, which
     0 turns off) and col_block % row_block == 0 (the row-dirty flags
     reshape the union into row blocks), else symmetrically. With a
-    ``mesh`` each rank sweeps its share of the list on ``device``.
+    ``mesh`` each device sweeps its share of the list, and the engine's
+    device is the mesh's primary one (``device`` may name it).
     ``backend`` is the JAX engine's: "auto" and "pallas" select the
     tile-sweep route, anything else raises ValueError."""
 
@@ -101,10 +107,12 @@ class ScreeningEngine:
 
     def __init__(self, coords_sorted, row_block=DEFAULT_ROW_BLOCK,
                  col_block=DEFAULT_COL_BLOCK, backend="auto", mesh=None,
-                 device="cuda"):
+                 device=None):
         resolve_backend(backend)
-        self.device = resolve_device(device)
+        self.device = engine_device(device, mesh)
         self.mesh = mesh
+        # the devices the sweeps run on: one without a mesh
+        self._spread = LocalMesh((self.device,)) if mesh is None else mesh
         self.row_block = row_block
         self.col_block = col_block
         coords_sorted = np.asarray(coords_sorted, dtype=np.float32)
@@ -116,6 +124,8 @@ class ScreeningEngine:
         padded[:self.n] = coords_sorted
         self.coords_t = torch.as_tensor(np.ascontiguousarray(padded.T),
                                         device=self.device)
+        # each device's own coordinates, the first the engine's
+        self._coords_copies = self._spread.copies(self.coords_t)
         self._below = None  # (max_dist2, strict-< bool plane on device)
         self.last_stats = {}
 
@@ -179,9 +189,10 @@ class ScreeningEngine:
         """Fixpoint from (N_pad,) int32 device labels; ``row_lo`` > 0
         marks a series continuation whose first row_lo positions already
         carry a completed fixpoint at this max_dist2, so only tiles
-        touching the new frames are swept. Returns new device labels. On a
-        mesh, ``swept_tiles`` and ``per_device_tiles`` count this rank's
-        share."""
+        touching the new frames are swept. Returns new device labels.
+        ``swept_tiles`` counts the tiles this process swept (on a group's
+        mesh, this rank's share); on a mesh, ``per_device_tiles`` holds
+        the shares as the density engine's do."""
         t0 = time.perf_counter()
         bidir = self._bidir_ok()
         plan = "device" if bidir else "host"
@@ -191,40 +202,45 @@ class ScreeningEngine:
         rb, cb = self.row_block, self.col_block
         union_size = self.union_size(n_below)
         n_tiles = len(tiles[0])
-        ti = torch.as_tensor(tiles[0], device=self.device)
-        tj = torch.as_tensor(tiles[1], device=self.device)
-        if self.mesh is not None:
-            ti, tj = pruning.split_tiles_balanced((ti, tj), self.mesh.rank,
-                                                  self.mesh.size)
+        shares = self._spread.shares(tuple(
+            torch.as_tensor(t, device=self.device) for t in tiles))
         t_plan = time.perf_counter() - t0
         dirty_col = torch.ones(self.n_pad // cb, dtype=torch.bool,
                                device=self.device)
         dirty_row = (torch.ones(self.n_pad // rb, dtype=torch.bool,
                                 device=self.device) if bidir else None)
         iters = 0
-        swept = 0
+        swept = torch.zeros((), dtype=torch.int64, device=self.device)
         while True:
-            if bidir:
-                dirty = (dirty_col[tj.long()] | dirty_row[ti.long()])
-                swept += int(dirty.sum())
-                labels_swept = kernels.label_min_bidir(
-                    self.coords_t, labels, n_below, max_dist2, ti, tj,
-                    dirty.to(torch.int32), rb, cb)
-                if self.mesh is not None:
-                    pmin_(labels_swept, self.mesh)
-            else:
-                swept += int(dirty_col[tj.long()].sum())
-                prop = kernels.label_min_sparse(
-                    self.coords_t, self.coords_t, labels, n_below, max_dist2,
-                    ti, tj, 0, dirty_col.to(torch.int32), rb, cb)
-                if self.mesh is not None:
-                    pmin_(prop, self.mesh)
-                labels_swept = torch.minimum(labels, prop)
+            # every device's share is launched before the sweep's readback
+            # (the union's ``changed``), so that the devices run together
+            dcols = self._spread.copies(dirty_col)
+            drows = self._spread.copies(dirty_row) if bidir else None
+            parts, counts = [], []
+            for k, (ct, lab, (_, (ti, tj))) in enumerate(zip(
+                    self._coords_copies, self._spread.copies(labels),
+                    shares)):
+                if bidir:
+                    dirty = dcols[k][tj.long()] | drows[k][ti.long()]
+                    counts.append(dirty.sum())
+                    parts.append(kernels.label_min_bidir(
+                        ct, lab, n_below, max_dist2, ti, tj,
+                        dirty.to(torch.int32), rb, cb))
+                else:
+                    counts.append(dcols[k][tj.long()].sum())
+                    parts.append(kernels.label_min_sparse(
+                        ct, ct, lab, n_below, max_dist2, ti, tj, 0,
+                        dcols[k].to(torch.int32), rb, cb))
+            merged = self._spread.min(parts)
+            labels_swept = merged if bidir else torch.minimum(labels, merged)
+            for c in counts:
+                swept += c.to(self.device)
             labels, changed, dirty_col, dirty_row = self._union_step(
                 labels, labels_swept, union_size, bidir)
             iters += 1
             if not changed:
                 break
+        swept = int(swept)
         mode = "bidir" if bidir else "symmetric"
         stats = {"sweeps": iters, "tiles_per_sweep": n_tiles,
                  "swept_tiles": swept, "mode": mode, "plan": plan,
@@ -233,7 +249,8 @@ class ScreeningEngine:
         if self.mesh is not None:
             tag = "mesh "
             stats.update(mode=mode + "-mesh", mesh_devices=self.mesh.size,
-                         per_device_tiles=len(ti))
+                         per_device_tiles=per_device_tiles(
+                             self.mesh, [len(s[0]) for _, s in shares]))
         if is_verbose() and not self._quiet:
             logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
                    f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
@@ -259,13 +276,14 @@ class ThresholdSeriesScreener:
     below every series threshold stays contiguous while Morton order
     inside each band keeps tile bounding boxes tight. Clusters are named
     by their minimal FE-sorted frame rank, as in the reference. With a
-    ``mesh``, every rank runs the series on its share of each step's
-    list, from the main thread (``step_submit``'s pool only downloads)."""
+    ``mesh`` (either kind), the series runs on every device's share of
+    each step's list, from the main thread (``step_submit``'s pool only
+    downloads)."""
 
     def __init__(self, coords, free_energy, thresholds,
                  row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
                  backend="auto", mesh=None, hd_neighbors=None,
-                 device="cuda"):
+                 device=None):
         coords = np.asarray(coords, dtype=np.float32)
         fe = np.asarray(free_energy, dtype=np.float32)
         self.thresholds = [np.float32(t) for t in thresholds]

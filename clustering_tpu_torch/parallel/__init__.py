@@ -1,9 +1,10 @@
-"""Several ranks, one process each, on torch.distributed (counterpart of
-``clustering_tpu.parallel``). ``sharded`` loads lazily: the engines import
-``mesh``, and ``sharded`` imports the engines."""
+"""Meshes of devices (counterpart of ``clustering_tpu.parallel``): several
+devices driven from one process, or one rank per process on
+torch.distributed. ``sharded`` loads lazily: the engines import ``mesh``,
+and ``sharded`` imports the engines."""
 
-from .mesh import (Mesh, initialize, make_mesh, mesh_size,  # noqa: F401
-                   pmin_, psum_)
+from .mesh import (LocalMesh, Mesh, initialize, make_mesh,  # noqa: F401
+                   mesh_size, pmin_, psum_, visible_devices)
 
 
 def __getattr__(name):

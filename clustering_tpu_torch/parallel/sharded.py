@@ -1,15 +1,17 @@
-"""Density stages over a mesh of ranks.
+"""Density stages over a mesh.
 
 Counterpart of the public functions of ``clustering_tpu/parallel/
 sharded.py``: ``populations``, ``nearest_neighbors`` and
-``screening_labels``, on the tile-sweep route, without the JAX
-functions' ``backend`` and ``prune`` (their default there, "xla", selects
-the dense programs that are not ported, below), with a
-:class:`~.mesh.Mesh` from :func:`~.mesh.make_mesh`.
-Each runs the single-device engine with ``mesh``: every rank plans the
-whole tile list, sweeps its round-robin share on its device, and the
-partial results merge by ``all_reduce``; every rank returns the whole,
-bit-identical to a single rank's. ``ThresholdSeriesScreener(...,
+``screening_labels``, with the JAX functions' keywords and a mesh of
+either kind from :func:`~.mesh.make_mesh` (several devices of this
+process, or the ranks of a process group). ``backend`` follows the port's
+ops functions: "auto" (the default here) and "pallas" take the tile-sweep
+route; "xla", the JAX functions' default, selects the dense programs that
+are not ported (below) and raises ValueError, as does anything else.
+Each function runs the single-device engine with ``mesh``: the whole tile
+list is planned once per process, each device sweeps its round-robin
+share, and the partial results merge; the caller gets the whole,
+bit-identical to one device's. ``ThresholdSeriesScreener(...,
 mesh=mesh)`` distributes a screening series the same way.
 
 Not ported from the JAX package:
@@ -27,7 +29,7 @@ Not ported from the JAX package:
 """
 
 from ..ops import kernels
-from ..ops.engine import DensityEngine
+from ..ops.engine import DensityEngine, NN_BAND_BLOCKS, resolve_backend
 from ..ops.screening import ScreeningEngine
 
 DEFAULT_ROW_BLOCK = kernels.DEFAULT_ROW_BLOCK
@@ -35,29 +37,32 @@ DEFAULT_COL_BLOCK = kernels.DEFAULT_COL_BLOCK
 
 
 def populations(coords, radii, mesh, row_block=DEFAULT_ROW_BLOCK,
-                col_block=DEFAULT_COL_BLOCK):
+                col_block=DEFAULT_COL_BLOCK, backend="auto", prune=True):
     """Mesh-distributed multi-radius populations; same results as
-    ``ops.density.populations``: dict radius -> (N,) int64."""
-    engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
-                           device=mesh.device, mesh=mesh)
-    return engine.populations(radii)
+    ``ops.density.populations``: dict radius -> (N,) int64. ``prune=False``
+    sweeps every tile."""
+    resolve_backend(backend, dense=True, mesh=mesh)
+    engine = DensityEngine(coords, row_block, col_block, mesh=mesh)
+    return engine.populations(radii, prune=prune)
 
 
 def nearest_neighbors(coords, free_energy, mesh, row_block=DEFAULT_ROW_BLOCK,
-                      col_block=DEFAULT_COL_BLOCK):
+                      col_block=DEFAULT_COL_BLOCK, backend="auto",
+                      prune=True, band_blocks=NN_BAND_BLOCKS):
     """Mesh-distributed joint NN / lower-fe NN search; same results as
     ``ops.neighbors.nearest_neighbors``: (nh_idx, nh_d2, nhhd_idx,
-    nhhd_d2)."""
-    engine = DensityEngine(coords, row_block=row_block, col_block=col_block,
-                           device=mesh.device, mesh=mesh)
-    return engine.nearest_neighbors(free_energy)
+    nhhd_d2). ``prune`` and ``band_blocks`` are the engine's."""
+    resolve_backend(backend, dense=True, mesh=mesh)
+    engine = DensityEngine(coords, row_block, col_block, mesh=mesh)
+    return engine.nearest_neighbors(free_energy, prune=prune,
+                                    band_blocks=band_blocks)
 
 
 def screening_labels(coords_sorted, initial_labels, n_below, max_dist2, mesh,
-                     row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK):
+                     row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
+                     backend="auto"):
     """Mesh-distributed screening fixpoint; same results as
     ``ops.screening.screening_labels``."""
-    engine = ScreeningEngine(coords_sorted, row_block=row_block,
-                             col_block=col_block, device=mesh.device,
-                             mesh=mesh)
+    resolve_backend(backend, dense=True, mesh=mesh)
+    engine = ScreeningEngine(coords_sorted, row_block, col_block, mesh=mesh)
     return engine.run(initial_labels, n_below, max_dist2)

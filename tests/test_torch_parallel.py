@@ -77,7 +77,7 @@ mesh = None
 if world:
     pmesh.initialize(device, backend="gloo", init_method="file://" + store,
                      world_size=world, rank=rank)
-    mesh = pmesh.make_mesh(device)
+    mesh = pmesh.make_mesh(devices=[device])
 
 blocks = dict(row_block=rb, col_block=cb)
 if mesh is None:
@@ -362,7 +362,7 @@ if world:
     pmesh.initialize("cpu", backend="gloo", init_method="file://" + store,
                      world_size=world, rank=rank)
     # the JAX package's keyword alone: the device is the mesh's
-    kw = {"mesh": pmesh.make_mesh("cpu")}
+    kw = {"mesh": pmesh.make_mesh(devices=["cpu"])}
     all_reduce = dist.all_reduce
 
     def counted(*args, **kwargs):

@@ -175,7 +175,7 @@ mesh = None
 if world:
     pmesh.initialize("cpu", backend="gloo", init_method="file://" + store,
                      world_size=world, rank=rank)
-    mesh = pmesh.make_mesh("cpu")
+    mesh = pmesh.make_mesh(devices=["cpu"])
 res, stats = {}, {}
 for route, on in (("bidir", True), ("symmetric", False)):
     DensityEngine.NN_BIDIR = on
