@@ -132,6 +132,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      files, else a line that says why it did not run. It prints the stage
      walls, the merges' seconds (each between two synchronizes) and the
      shares. Co-located devices share one card: the walls are overheads.
+ 13. group mesh (a process group whose ranks each drive several devices,
+     the JAX package's multi-process mesh): (a) 2 gloo ranks sharing
+     cuda:0, each with ``make_mesh(devices=["cuda:0"] * 2)``, phase 6's
+     configuration on both routes: on every rank populations, nn ids, nn
+     distances (bit for bit) and the four clusterings equal phase 6's run,
+     each device's shares equal to phase 12's mesh of 4 at its global
+     index, the route's kernels launched once per device per call with a
+     non-empty share, no other; (b) the density CLI in a process of its
+     own under the distributed switches at world size 1 with NCCL, its
+     visible devices patched to cuda:0 twice: it meshes both and writes
+     phase 5's files, byte for byte; (c) where ``nvidia-smi -L`` lists two
+     or more cards, (b) unpatched over two real cards, else a line that
+     says why not. It prints rank 0's stage walls, each rank's merges and
+     ``all_reduce`` seconds, and the CLI process's walls.
 
 The line before the last holds the kernels' JSON record, from phase 8;
 the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
@@ -1464,12 +1478,14 @@ MESH_RUNS = ((2, True), (4, True), (2, False))
 MESH_TIMEOUT = 300
 
 
-def mesh_rank(rank, world, store, bidir, out):
-    """One gloo rank of phase 10 on cuda:0: the engines at N_MAIN over the
-    mesh (``run_engines``) twice, the first run in a fresh process (cold),
-    then again (warm), with identical results; every ``all_reduce`` timed
-    between two synchronizes. Writes the warm run's results, stats and
-    launches, and both runs' walls and reduce totals, to ``out``."""
+def mesh_rank(rank, world, store, bidir, out, per_rank=1):
+    """One gloo rank of phase 10 (13 with ``per_rank`` > 1) on cuda:0, its
+    mesh over cuda:0 named ``per_rank`` times: the engines at N_MAIN over
+    the mesh (``run_engines``) twice, the first run in a fresh process
+    (cold), then again (warm), with identical results; every merge and
+    every ``all_reduce`` timed between two synchronizes. Writes the warm
+    run's results, stats and launches, and both runs' walls, merge and
+    reduce totals, to ``out``."""
     import torch
     import torch.distributed as dist
     from clustering_tpu_torch.ops import kernels
@@ -1478,7 +1494,7 @@ def mesh_rank(rank, world, store, bidir, out):
     pmesh.initialize("cuda:0", backend="gloo", init_method="file://" + store,
                      world_size=world, rank=rank)
     try:
-        mesh = pmesh.make_mesh(devices=["cuda:0"])
+        mesh = pmesh.make_mesh(devices=["cuda:0"] * per_rank)
         all_reduce = dist.all_reduce
         reduce = []
 
@@ -1494,22 +1510,29 @@ def mesh_rank(rank, world, store, bidir, out):
 
         dist.all_reduce = timed_all_reduce
         coords = synthetic_fel(N_MAIN, DIM, seed=0)
-        runs = []
+        runs, merges = [], []
         for _ in ("cold", "warm"):
             stats = {}
             reduce.append({"calls": 0, "seconds": 0.0, "bytes": 0})
             # phase 6's tier_qs: a mesh keeps the row-side route block-bound
             qs = "auto" if bidir else DensityEngine.TIER_QS_DEFAULT
-            with bidir_switches(bidir):
+            with bidir_switches(bidir), timed_merges(torch,
+                                                     pmesh.Mesh) as tally:
                 kernels.reset_launches()
                 runs.append(run_engines(torch, coords, stats, mesh=mesh,
                                         tier_qs=qs))
+            merges.append(tally)
         same_results(runs[0], runs[1], f"rank {rank}'s cold and warm runs")
         pops, nn, clust, _, modes = runs[1]
         meta = {"walls": [run[3] for run in runs], "modes": modes,
                 "nn_mode": stats["nearest neighbors"]["mode"],
-                "reduce": reduce, "launches": dict(kernels.LAUNCHES),
-                "shares": stage_tiles(stats, share=True)}
+                "reduce": reduce, "merges": merges,
+                "launches": dict(kernels.LAUNCHES),
+                "shares": stage_tiles(stats, share=True),
+                "layout": [mesh.offset, mesh.size]}
+        if per_rank > 1:
+            meta["want_launches"] = mesh_launches(
+                BIDIR_KERNELS if bidir else SPARSE_KERNELS, stats)
         np.savez(out, pops=pops, nn_ids=np.stack([nn[0], nn[2]]),
                  nn_d2=np.stack([nn[1], nn[3]]), clust=np.stack(clust),
                  meta=json.dumps(meta))
@@ -1517,18 +1540,19 @@ def mesh_rank(rank, world, store, bidir, out):
         dist.destroy_process_group()
 
 
-def spawn_ranks(torch, world, bidir, tmp):
-    """Start ``world`` gloo ranks (``mesh_rank``) sharing cuda:0 with a
-    FileStore rendezvous in ``tmp``; fail if one fails or any is alive
-    after MESH_TIMEOUT (all are killed then). Returns each rank's
-    (results, meta) and the wall of the whole run."""
+def spawn_ranks(torch, world, bidir, tmp, per_rank=1):
+    """Start ``world`` gloo ranks (``mesh_rank``) sharing cuda:0, each
+    over ``per_rank`` devices, with a FileStore rendezvous in ``tmp``;
+    fail if one fails or any is alive after MESH_TIMEOUT (all are killed
+    then). Returns each rank's (results, meta) and the wall of the whole
+    run."""
     ctx = torch.multiprocessing.get_context("spawn")
-    store = os.path.join(tmp, f"store{world}{int(bidir)}")
-    outs = [os.path.join(tmp, f"mesh{world}{int(bidir)}_{r}.npz")
-            for r in range(world)]
+    tag = f"{world}{int(bidir)}{per_rank}"
+    store = os.path.join(tmp, f"store{tag}")
+    outs = [os.path.join(tmp, f"mesh{tag}_{r}.npz") for r in range(world)]
     t0 = time.perf_counter()
     procs = [ctx.Process(target=mesh_rank,
-                         args=(r, world, store, bidir, outs[r]))
+                         args=(r, world, store, bidir, outs[r], per_rank))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -1556,6 +1580,21 @@ def spawn_ranks(torch, world, bidir, tmp):
     return ranks, wall
 
 
+def rank_checks(tag, rank, got, meta, route, want_nn, want):
+    """Fail unless a mesh rank's run (``got``, ``meta``) took ``route`` on
+    every stage and NN's phase 2 of ``want_nn``, and its results equal
+    ``want`` (phase 6's run)."""
+    if set(meta["modes"].values()) != {route + "-mesh"}:
+        fail(f"{tag}: rank {rank} took another route: {meta['modes']}")
+    if meta["nn_mode"] != want_nn["mode"]:
+        fail(f"{tag}: rank {rank}'s NN phase 2 was {meta['nn_mode']}, not"
+             f" {want_nn['mode']}")
+    same_results(
+        (got["pops"], (got["nn_ids"][0], got["nn_d2"][0], got["nn_ids"][1],
+                       got["nn_d2"][1]), list(got["clust"])),
+        want, f"{tag}: rank {rank} and phase 6")
+
+
 def phase_mesh(torch, runs, tmp, smi):
     """Co-located gloo ranks on cuda:0 against phase 6's runs (``runs``),
     then the CLI under NCCL at world size 1 against phase 5's files."""
@@ -1580,17 +1619,8 @@ def phase_mesh(torch, runs, tmp, smi):
             print(f"{tag}: rank {rank} all_reduce {red}; tiles"
                   f" {json.dumps(meta['shares'])}; launches"
                   f" {json.dumps(meta['launches'])}")
-            if set(meta["modes"].values()) != {route + "-mesh"}:
-                fail(f"{tag}: rank {rank} took another route:"
-                     f" {meta['modes']}")
-            if meta["nn_mode"] != want_nn["mode"]:
-                fail(f"{tag}: rank {rank}'s NN phase 2 was"
-                     f" {meta['nn_mode']}, not {want_nn['mode']}")
-            same_results(
-                (got["pops"], (got["nn_ids"][0], got["nn_d2"][0],
-                               got["nn_ids"][1], got["nn_d2"][1]),
-                 list(got["clust"])),
-                (pops, nn, clust), f"rank {rank} of {world} and phase 6")
+            rank_checks(tag, rank, got, meta, route, want_nn,
+                        (pops, nn, clust))
             on, off = ((BIDIR_KERNELS, SPARSE_KERNELS) if bidir
                        else (SPARSE_KERNELS, BIDIR_KERNELS))
             shares = meta["shares"]
@@ -1616,12 +1646,14 @@ def phase_mesh(torch, runs, tmp, smi):
     phase_nccl_cli(tmp)
 
 
-def cli_process(tmp, name, distributed=False, env_extra=None):
+def cli_process(tmp, name, distributed=False, env_extra=None, code=None):
     """The density CLI at phase 5's argv on phase 5's coordinates, in a
     process of its own in ``tmp``/``name``, under the distributed switches
-    at world size 1 if ``distributed``, with the variables ``env_extra``;
-    fails unless its files are byte-identical to phase 5's (but for the
-    time stamp). Returns its stdout, its wall and its stage walls."""
+    at world size 1 if ``distributed``, with the variables ``env_extra``,
+    run by ``python -c code`` if given (the code takes the argv from
+    ``sys.argv[1:]``); fails unless its files are byte-identical to phase
+    5's (but for the time stamp). Returns its stdout, its wall and its
+    stage walls."""
     import socket
     import sys
     main_dir, d = os.path.join(tmp, "main"), os.path.join(tmp, name)
@@ -1641,8 +1673,10 @@ def cli_process(tmp, name, distributed=False, env_extra=None):
                    CLUSTERING_TPU_NUM_PROCESSES="1",
                    CLUSTERING_TPU_PROCESS_ID="0")
     t0 = time.perf_counter()
+    run = (["-m", "clustering_tpu_torch"] if code is None
+           else ["-c", code])
     proc = subprocess.run(
-        [sys.executable, "-m", "clustering_tpu_torch"] + ARGV, cwd=d, env=env,
+        [sys.executable] + run + ARGV, cwd=d, env=env,
         capture_output=True, text=True, timeout=MESH_TIMEOUT)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
@@ -1926,13 +1960,14 @@ def phase_share_holds(torch, calls, smi):
 
 
 @contextlib.contextmanager
-def timed_merges(torch):
-    """Every merge of a local mesh (``LocalMesh.sum`` and ``.min``) timed
-    between two synchronizes while the block runs; yields {"calls": n,
-    "seconds": s}."""
+def timed_merges(torch, cls=None):
+    """Every merge of a mesh class (``cls``, default ``LocalMesh``: its
+    ``sum`` and ``min``) timed between two synchronizes while the block
+    runs; yields {"calls": n, "seconds": s}."""
     from clustering_tpu_torch.parallel.mesh import LocalMesh
+    cls = LocalMesh if cls is None else cls
     tally = {"calls": 0, "seconds": 0.0}
-    saved = {name: getattr(LocalMesh, name) for name in ("sum", "min")}
+    saved = {name: getattr(cls, name) for name in ("sum", "min")}
 
     def timed(fn):
         def merge(self, parts):
@@ -1946,12 +1981,12 @@ def timed_merges(torch):
         return merge
 
     for name, fn in saved.items():
-        setattr(LocalMesh, name, timed(fn))
+        setattr(cls, name, timed(fn))
     try:
         yield tally
     finally:
         for name, fn in saved.items():
-            setattr(LocalMesh, name, fn)
+            setattr(cls, name, fn)
 
 
 def mesh_launches(route_kernels, stats):
@@ -1969,11 +2004,13 @@ def phase_local_mesh(torch, runs, smi):
     """Phase 12 (a): phase 6's configuration through the engines on local
     meshes over cuda:0 named 2 and 4 times, on both routes, against phase
     6's runs (``runs``), in turns with the one device (LOCAL_TURNS) on NN's
-    phase 2 of the meshes, for stage walls taken in one state."""
+    phase 2 of the meshes, for stage walls taken in one state. Returns
+    each route's shares on the mesh of 4, by stage."""
     from clustering_tpu_torch.ops import kernels
     from clustering_tpu_torch.ops.engine import DensityEngine
     from clustering_tpu_torch.parallel import make_mesh
     coords = synthetic_fel(N_MAIN, DIM, seed=0)
+    four = {}
     for route, bidir in (("bidir", True), ("symmetric", False)):
         pops, nn, clust, _, _, _, stats = runs[route]
         want_tiles = stage_tiles(stats)
@@ -2002,6 +2039,8 @@ def phase_local_mesh(torch, runs, smi):
             if mesh is None:
                 continue
             shares = stage_tiles(st, share=True)
+            if k == 4:
+                four[route] = shares
             print(f"{tag}: {smi}; N={N_MAIN} D={DIM}, stages"
                   f" {json.dumps(out[3])}; {merges['calls']} merges in"
                   f" {merges['seconds']:.4f}s; shares {json.dumps(shares)};"
@@ -2030,6 +2069,7 @@ def phase_local_mesh(torch, runs, smi):
               f" for bit) and {len(THRESHOLDS)} clusterings identical to"
               f" phase 6 on {' and '.join(map(str, LOCAL_SIZES))} devices;"
               f" shares sum to phase 6's tiles {json.dumps(want_tiles)}")
+    return four
 
 
 def phase_local_cli(torch, tmp):
@@ -2103,28 +2143,135 @@ def phase_local_big(torch, big, smi):
                   where="local mesh")
 
 
-def phase_two_cards(tmp, all_cards):
-    """Phase 12 (e): where ``nvidia-smi -L`` lists more than one card, the
-    density CLI in a process of its own over two real cards (the first two
-    of ``all_cards``, the CUDA_VISIBLE_DEVICES the script was started
-    with, else 0 and 1) against phase 5's files; else say why not."""
+def two_cards(all_cards, tag):
+    """"i,j", the first two cards of ``all_cards`` (the
+    CUDA_VISIBLE_DEVICES the script was started with, else every card
+    ``nvidia-smi -L`` lists), or None, after a line under ``tag`` that
+    says why, where fewer than two are listed or visible."""
     listed = subprocess.run(["nvidia-smi", "-L"], capture_output=True,
                             text=True, check=True).stdout.split("\n")
     listed = [ln for ln in listed if ln.startswith("GPU ")]
     cards = (all_cards.split(",") if all_cards
              else [str(i) for i in range(len(listed))])
     if len(listed) < 2 or len(cards) < 2:
-        print(f"[local mesh] two real cards: not run: nvidia-smi -L lists"
+        print(f"{tag} two real cards: not run: nvidia-smi -L lists"
               f" {len(listed)} card(s), {len(cards)} of them visible to this"
               " run")
+        return None
+    return ",".join(cards[:2])
+
+
+def phase_two_cards(tmp, all_cards):
+    """Phase 12 (e): where ``nvidia-smi -L`` lists more than one card, the
+    density CLI in a process of its own over two real cards (the first two
+    of ``all_cards``, the CUDA_VISIBLE_DEVICES the script was started
+    with, else 0 and 1) against phase 5's files; else say why not."""
+    pair = two_cards(all_cards, "[local mesh]")
+    if pair is None:
         return
-    pair = ",".join(cards[:2])
     out, wall, walls = cli_process(tmp, "two_cards",
                                    env_extra={"CUDA_VISIBLE_DEVICES": pair})
     if "~~~ mesh of 2 devices: cuda:0, cuda:1" not in out:
         fail("the CLI over two cards did not mesh them")
     print(f"[local mesh] CLI process over cards {pair}: {wall:.3f}s, stages"
           f" {json.dumps(walls)}; files byte-identical to phase 5's")
+
+
+# -- phase 13 ------------------------------------------------------------------
+
+# phase 13's group: 2 gloo ranks on the one card, each over cuda:0 named
+# GROUP_PER_RANK times, so 4 devices dealt as phase 12's mesh of 4
+GROUP_RANKS = 2
+GROUP_PER_RANK = 2
+# the CLI with the visible devices patched to cuda:0 twice
+GROUP_CLI = ("import sys, torch\n"
+             "from clustering_tpu_torch import cli\n"
+             "from clustering_tpu_torch.parallel import mesh as pmesh\n"
+             "pmesh.visible_devices = lambda device='cuda': "
+             "[torch.device('cuda', 0)] * 2\n"
+             "sys.exit(cli.main(sys.argv[1:]))\n")
+
+
+def phase_group_mesh(torch, runs, four, tmp, smi):
+    """Phase 13 (a): GROUP_RANKS gloo ranks sharing cuda:0, each with
+    ``make_mesh(devices=["cuda:0"] * GROUP_PER_RANK)``, on both routes
+    against phase 6's runs (``runs``): results bit for bit, each device's
+    shares equal to phase 12's mesh of 4 (``four``) at its global index,
+    and the route's kernels launched once per device per call with a
+    non-empty share, no other."""
+    for route, bidir in (("bidir", True), ("symmetric", False)):
+        pops, nn, clust, _, _, _, stats = runs[route]
+        want_nn = stats["nearest neighbors" if bidir else "nn block-bound"]
+        ranks, wall = spawn_ranks(torch, GROUP_RANKS, bidir, tmp,
+                                  GROUP_PER_RANK)
+        tag = (f"[group mesh] {GROUP_RANKS} gloo ranks x cuda:0 x"
+               f" {GROUP_PER_RANK}, {route}")
+        print(f"{tag}: {smi}; N={N_MAIN} D={DIM}, {wall:.3f}s from spawn to"
+              " join")
+        for run, walls in zip(("cold", "warm"), ranks[0][1]["walls"]):
+            print(f"{tag}: rank 0 stages, {run} run {json.dumps(walls)}")
+        off = SPARSE_KERNELS if bidir else BIDIR_KERNELS
+        for rank, (got, meta) in enumerate(ranks):
+            laps = zip(("cold", "warm"), meta["merges"], meta["reduce"])
+            timing = ", ".join(
+                f"{run} {m['calls']} merges in {m['seconds']:.4f}s of which"
+                f" all_reduce {r['calls']} calls, {r['bytes']} bytes,"
+                f" {r['seconds']:.4f}s" for run, m, r in laps)
+            print(f"{tag}: rank {rank} {timing}; offset/size"
+                  f" {meta['layout']}; shares {json.dumps(meta['shares'])};"
+                  f" launches {json.dumps(meta['launches'])}")
+            offset = rank * GROUP_PER_RANK
+            if meta["layout"] != [offset, GROUP_RANKS * GROUP_PER_RANK]:
+                fail(f"{tag}: rank {rank}'s offset and size are"
+                     f" {meta['layout']}")
+            rank_checks(tag, rank, got, meta, route, want_nn,
+                        (pops, nn, clust))
+            for stage, shares in meta["shares"].items():
+                want = four[route][stage][offset:offset + GROUP_PER_RANK]
+                if shares != want:
+                    fail(f"{tag}: rank {rank}'s {stage} shares {shares} are"
+                         f" not phase 12's {want} at devices {offset}-"
+                         f"{offset + GROUP_PER_RANK - 1}")
+            want = dict(meta["want_launches"], **{name: 0 for name in off})
+            got_launches = {name: meta["launches"][name] for name in want}
+            if got_launches != want:
+                fail(f"{tag}: rank {rank} launched {got_launches}, not one"
+                     f" per device per call with a non-empty share: {want}")
+        print(f"{tag}: populations, nn ids, nn distances (bit for bit) and"
+              f" {len(THRESHOLDS)} clusterings identical to phase 6 on every"
+              f" rank; NN phase 2 {want_nn['mode']}; each device's shares"
+              " those of phase 12's mesh of 4 at its global index")
+
+
+def phase_group_cli(tmp, all_cards):
+    """Phase 13 (b) and (c): the density CLI in a process of its own under
+    the distributed switches at world size 1 with NCCL, its visible
+    devices patched to cuda:0 twice: it meshes both and writes phase 5's
+    files; then, where ``nvidia-smi -L`` lists two or more cards, the same
+    unpatched over two real cards (``all_cards`` as in phase 12 (e)),
+    else a line that says why not."""
+    out, wall, walls = cli_process(tmp, "group_cli", distributed=True,
+                                   code=GROUP_CLI)
+    rank_line = re.search(r"~~~ rank 0 of 1 \((\w+)\)", out)
+    if rank_line is None or rank_line.group(1) != "nccl":
+        fail("the group CLI did not run as rank 0 of 1 under NCCL")
+    if "~~~ mesh of 2 devices: cuda:0, cuda:0" not in out:
+        fail("the group CLI did not mesh the patched devices")
+    if out.count("[mesh screening fixpoint") < len(THRESHOLDS):
+        fail("the group CLI's screening did not run on the mesh")
+    print(f"[group mesh] CLI process, NCCL, world size 1, cuda:0 x 2:"
+          f" {wall:.3f}s of process, stages {json.dumps(walls)}; files"
+          " byte-identical to phase 5's")
+    pair = two_cards(all_cards, "[group mesh]")
+    if pair is None:
+        return
+    out, wall, walls = cli_process(tmp, "group_two_cards", distributed=True,
+                                   env_extra={"CUDA_VISIBLE_DEVICES": pair})
+    if "~~~ mesh of 2 devices: cuda:0, cuda:1" not in out:
+        fail("the group CLI over two cards did not mesh them")
+    print(f"[group mesh] CLI process, NCCL, world size 1, cards {pair}:"
+          f" {wall:.3f}s, stages {json.dumps(walls)}; files byte-identical"
+          " to phase 5's")
 
 
 def main():
@@ -2171,12 +2318,15 @@ def main():
         del main_inputs
         phase_unpruned(torch, smi)
         lap("11")
-        phase_local_mesh(torch, runs, smi)
+        four = phase_local_mesh(torch, runs, smi)
         phase_local_cli(torch, tmp)
         phase_local_big(torch, big, smi)
         del big
         phase_two_cards(tmp, all_cards)
         lap("12")
+        phase_group_mesh(torch, runs, four, tmp, smi)
+        phase_group_cli(tmp, all_cards)
+        lap("13")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,8 +19,9 @@ device. The device stages take the JAX package's ``mesh=``, either kind
 that ``parallel.make_mesh()`` builds: in a plain process a mesh over every
 visible card (or over ``devices=[...]``), whose shares this process
 launches and merges; inside an initialised process group the mesh of its
-ranks, each calling with the same arguments. Either way the caller gets
-the whole result, and the device defaults to the mesh's (primary) one.
+ranks' devices (one or several per rank), each rank calling with the
+same arguments. Either way the caller gets the whole result, and the
+device defaults to the mesh's (primary) one.
 """
 
 from collections import namedtuple

@@ -12,8 +12,12 @@ JAX package's numpy drivers (``models/``), which write the same files.
 the JAX CLI does: ``CLUSTERING_TPU_DISTRIBUTED=1`` with
 ``CLUSTERING_TPU_COORDINATOR=host:port``, ``CLUSTERING_TPU_NUM_PROCESSES``
 and ``CLUSTERING_TPU_PROCESS_ID`` in each process, or ``torchrun
---nproc-per-node K -m clustering_tpu_torch density ...``. Each rank then
-computes on its own card (``cuda:LOCAL_RANK % device_count``).
+--nproc-per-node K -m clustering_tpu_torch density ...``. The ranks mesh
+by the host rule (``parallel.mesh.host_devices``): a rank alone on its
+host drives every visible card of it (the JAX layout: one process per
+host, its cards dealt by global device index), while ranks that share a
+host keep one card each, ``cuda:local_index % device_count`` (torchrun's
+layout, or the switches with one process per card).
 
 Two runtime switches of the JAX CLI apply to ``density``:
 

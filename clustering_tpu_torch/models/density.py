@@ -8,10 +8,13 @@ helpers are copies of the JAX module's: it imports its ``ops`` package and
 through it jax.
 
 The run meshes as the JAX CLI does (:func:`run_mesh`): inside a process
-group (the CLI has joined one, ``parallel.mesh.initialize``) over its
-ranks, each rank writing the same files in its own working directory;
-else over every visible card when there is more than one, from this one
-process, which writes each file once; else on one device.
+group (the CLI has joined one, ``parallel.mesh.initialize``) over every
+rank's devices -- all of its host's visible cards for a rank alone on
+its host, else one card of its own (the host rule,
+``parallel.mesh.host_devices``) -- each rank writing the same files in
+its own working directory; else over every visible card when there is
+more than one, from this one process, which writes each file once; else
+on one device.
 
 When nearest neighbours follow populations, populations starts the NN
 band pass (``nn_band_radius``) and the screening series' screener is
@@ -243,12 +246,14 @@ def _precompile_on(engine):
 
 def run_mesh(device):
     """The density run's mesh, by the JAX CLI's rule: the process group's
-    when one is initialised (this rank on ``device``); else, when more
-    than one device is visible for ``device``
+    when one is initialised, this rank on the host rule's devices of
+    ``device``'s type (``parallel.mesh.rank_devices``: every visible one
+    when the rank is alone on its host, else one of its own); else, when
+    more than one device is visible for ``device``
     (``parallel.mesh.visible_devices``: every card for a bare "cuda"), a
     local mesh over all of them; else None."""
     if dist.is_initialized():
-        return pmesh.make_mesh(devices=[device])
+        return pmesh.make_mesh(devices=pmesh.rank_devices(device))
     devices = pmesh.visible_devices(device)
     return pmesh.make_mesh(devices=devices) if len(devices) > 1 else None
 
@@ -261,9 +266,9 @@ def main(args, header_comment, comments_map, device, device_warm=None):
     mesh = run_mesh(device)
     if mesh is not None:
         device = mesh.device
-        if not dist.is_initialized():
-            logger(f"~~~ mesh of {mesh.size} devices: "
-                   + ", ".join(map(str, mesh.devices)))
+        # this process's devices
+        logger(f"~~~ mesh of {mesh.size} devices: "
+               + ", ".join(map(str, mesh.devices)))
     engine = DensityEngine(coords, device=device, mesh=mesh)
     free_energy = None
     # the pops / fe / nn files are written on worker threads while the

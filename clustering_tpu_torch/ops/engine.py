@@ -14,10 +14,11 @@ With a mesh (``parallel.mesh``), each list is dealt round-robin over the
 mesh's devices (``pruning.split_tiles_balanced``) and each device sweeps
 its share on copies of its own of the layout; the partial counts merge by
 a SUM, the NN keys by a MIN after each pass (the counterpart of the JAX
-engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``). On a local
-mesh this process plans once on the primary device, launches every
-device's share, then merges there; on a process group's mesh every rank
-plans the same lists, sweeps its own share and merges by ``all_reduce``.
+engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``). This process
+plans once on the primary device, launches each of its devices' shares,
+then merges them there; on a process group's mesh every rank plans the
+same lists, sweeps the shares of its own devices (one or several, dealt
+by global device index) and adds an ``all_reduce`` of its merged part.
 Either way the caller holds the whole result. Without a mesh the engine
 runs the same code over one device.
 """
@@ -30,7 +31,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import LocalMesh
+from ..parallel.mesh import LocalMesh, Mesh, rank_devices
 from ..utils import textio_native
 from ..utils.logger import is_verbose, logger
 from . import kernels, pruning
@@ -45,8 +46,11 @@ NN_BAND_ORDER = "morton"
 def resolve_device(device):
     """torch.device for ``device`` (None: "cuda"); a CUDA device must exist
     (there is no silent CPU fallback). In an initialised process group a
-    bare "cuda" is the rank's card, ``cuda:LOCAL_RANK % device_count`` (the
-    rank when LOCAL_RANK is unset)."""
+    bare "cuda" is the rank's primary card by the host rule
+    (``parallel.mesh.rank_devices``: ``cuda:0`` for a rank alone on its
+    host, else ``cuda:local_index % device_count``, never one card for two
+    ranks of a host); that is a collective unless the launcher set
+    ``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE``."""
     device = torch.device("cuda" if device is None else device)
     if device.type != "cuda":
         return device
@@ -54,8 +58,7 @@ def resolve_device(device):
         raise RuntimeError("CUDA device requested but torch.cuda is not "
                            "available")
     if device.index is None and dist.is_available() and dist.is_initialized():
-        local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
-        device = torch.device("cuda", local % torch.cuda.device_count())
+        device = rank_devices("cuda")[0]
     return device
 
 
@@ -77,9 +80,10 @@ def engine_device(device, mesh):
 
 def per_device_tiles(mesh, counts):
     """``last_stats``' ``per_device_tiles`` of the share sizes ``counts``
-    (one per device this process sweeps on): the list on a local mesh,
-    this rank's count on a group's."""
-    return counts if isinstance(mesh, LocalMesh) else counts[0]
+    (one per device this process sweeps on): the list, but this rank's
+    count alone on a group's mesh of one device per rank."""
+    one = isinstance(mesh, Mesh) and len(counts) == 1
+    return counts[0] if one else counts
 
 
 def resolve_backend(backend, dense=False, mesh=None):

@@ -25,11 +25,13 @@ With a mesh (``parallel.mesh``), each device sweeps its round-robin share
 of the list against copies of its own of the coordinates, the labels and
 the dirty flags, and the swept labels (bidir) or proposals (symmetric)
 merge by a MIN before the union (the counterpart of the JAX package's
-``_screening_sharded_pallas_bidir``). On a local mesh the union runs once,
-on the primary device, and the labels and flags go back out to the
-devices for the next sweep; on a group's mesh it runs on identical
-tensors on every rank, so convergence needs no other collective. Every
-device's share is launched before the sweep's one readback.
+``_screening_sharded_pallas_bidir``); on a group's mesh a rank's devices
+merge on its primary device, then over the ranks by ``all_reduce``. The
+union runs once per process, on the primary device, and the labels and
+flags go back out to its devices for the next sweep; on a group's mesh
+it runs on identical tensors on every rank, so convergence needs no
+other collective. Every device's share is launched before the sweep's
+one readback.
 """
 
 import time
@@ -191,7 +193,7 @@ class ScreeningEngine:
         carry a completed fixpoint at this max_dist2, so only tiles
         touching the new frames are swept. Returns new device labels.
         ``swept_tiles`` counts the tiles this process swept (on a group's
-        mesh, this rank's share); on a mesh, ``per_device_tiles`` holds
+        mesh, this rank's shares); on a mesh, ``per_device_tiles`` holds
         the shares as the density engine's do."""
         t0 = time.perf_counter()
         bidir = self._bidir_ok()

@@ -1,10 +1,12 @@
 """Meshes of devices (counterpart of ``clustering_tpu.parallel``): several
 devices driven from one process, or one rank per process on
-torch.distributed. ``sharded`` loads lazily: the engines import ``mesh``,
-and ``sharded`` imports the engines."""
+torch.distributed, each rank driving one device or several.
+``sharded`` loads lazily: the engines import ``mesh``, and ``sharded``
+imports the engines."""
 
-from .mesh import (LocalMesh, Mesh, initialize, make_mesh,  # noqa: F401
-                   mesh_size, pmin_, psum_, visible_devices)
+from .mesh import (LocalMesh, Mesh, host_devices,  # noqa: F401
+                   initialize, make_mesh, mesh_size, pmin_, psum_,
+                   rank_devices, visible_devices)
 
 
 def __getattr__(name):

@@ -1,24 +1,30 @@
-"""Meshes of devices: one process driving several devices, or one rank of
-a process group on ``torch.distributed``.
+"""Meshes of devices: one process driving several devices, or the ranks of
+a process group on ``torch.distributed``, each driving one or several.
 
 Counterpart of ``clustering_tpu/parallel/mesh.py``. The JAX package
-meshes every chip it sees from one process into one SPMD program; the
+meshes every chip it sees, of every process, into one SPMD program; the
 density stages deal every tile list round-robin over the mesh's devices
 (``ops.pruning.split_tiles_balanced``), each device sweeps its share
 into full-size partial results, and the partials merge: SUM for counts,
 MIN for the packed (d2, id) NN keys and for labels -- the counterparts of
 the JAX package's ``psum`` and ``pmin``. Two kinds of mesh serve that
-one interface (``shares``, ``copies``, ``sum``, ``min``):
+one interface (``shares``, ``copies``, ``sum``, ``min``, ``device``,
+``devices``, ``size``):
 
 - :class:`LocalMesh`, the single controller: this process plans each
   list once on its primary device (``devices[0]``), launches every
   device's share on that device, and merges the partials there by peer
   copies and a reduction. :func:`make_mesh` builds it in a plain
   process, over every visible card by default, as the JAX CLI does.
-- :class:`Mesh`, one rank of an initialised process group, one device
-  per rank (for runs across nodes): every rank plans the same lists,
-  sweeps its own share and merges by ``all_reduce`` (:func:`psum_`,
-  :func:`pmin_`), from one thread, in the same order on every rank.
+- :class:`Mesh`, one rank of an initialised process group with its own
+  devices, one or several: every rank plans the same lists; device ``k``
+  of a rank sweeps the share of global device index ``offset + k`` of
+  ``size`` (all ranks' devices), so that the shares are a
+  :class:`LocalMesh`'s of ``size`` devices whatever the split over
+  ranks. A merge folds the rank's parts into its primary device's, as a
+  local mesh does, then runs one ``all_reduce`` over the ranks
+  (:func:`psum_`, :func:`pmin_`) on that tensor, from one thread, in the
+  same order on every rank.
 
 Either way the caller holds the whole result afterwards, so the JAX
 helpers ``replicated`` and ``fetch`` have no counterpart here.
@@ -27,13 +33,16 @@ A process joins a group through :func:`initialize`, from the JAX
 package's switches (``CLUSTERING_TPU_DISTRIBUTED``, with
 ``CLUSTERING_TPU_COORDINATOR``, ``CLUSTERING_TPU_NUM_PROCESSES`` and
 ``CLUSTERING_TPU_PROCESS_ID``) or from torch's own ``env://`` variables,
-which ``torchrun`` sets. A rank's device is ``cuda:LOCAL_RANK %
-device_count`` (``ops.engine.resolve_device``) unless the caller asks
-for the CPU.
+which ``torchrun`` sets. By default a rank takes its devices by the host
+rule (:func:`host_devices`): every visible card when it is the only rank
+on its host (the JAX layout, one process per host), else one card of its
+own, ``cuda:local_index % device_count`` (one process per card, as under
+``torchrun --nproc-per-node K``).
 """
 
 import dataclasses
 import os
+import socket
 
 import torch
 import torch.distributed as dist
@@ -44,6 +53,8 @@ NUM_PROCESSES_ENV = "CLUSTERING_TPU_NUM_PROCESSES"
 PROCESS_ID_ENV = "CLUSTERING_TPU_PROCESS_ID"
 # what env:// reads, as torchrun sets it
 LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+# a rank's place on its host, as torchrun sets it
+LOCAL_ENV = ("LOCAL_RANK", "LOCAL_WORLD_SIZE")
 
 
 def _deal(tiles, index, size):
@@ -52,37 +63,71 @@ def _deal(tiles, index, size):
     return split_tiles_balanced(tiles, index, size)
 
 
+def _shares(tiles, devices, offset, size):
+    """[(device, its share of ``tiles``)] for ``devices``, the global
+    indices ``offset``, ``offset + 1``, ... of ``size``; each share on its
+    device."""
+    return [(dev, tuple(t.to(dev) for t in _deal(tiles, offset + k, size)))
+            for k, dev in enumerate(devices)]
+
+
+def _copies(t, devices):
+    """``t`` (on the primary device) for the first of ``devices``, and a
+    copy of its own for each other one, even on the same device
+    (``t.to(dev)`` would return ``t`` there)."""
+    return [t] + [t.to(dev, copy=True) for dev in devices[1:]]
+
+
+def _local_sum(parts):
+    out = parts[0]
+    for part in parts[1:]:
+        out.add_(part.to(out.device))
+    return out
+
+
+def _local_min(parts):
+    out = parts[0]
+    for part in parts[1:]:
+        torch.minimum(out, part.to(out.device), out=out)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The ranks of a process group, seen from one of them: its ``rank``
-    of ``size`` and the ``device`` it computes on."""
+    """The devices of a process group's ranks, seen from one of them: the
+    ``group``, this ``rank``, its ``devices`` (a tuple, the first one
+    primary: the ``device`` where it plans and merges), ``offset``, the
+    global index of its first device, and ``size``, the global device
+    count (the JAX package's ``mesh_size``; the world size with one
+    device per rank). A device may repeat, as in a :class:`LocalMesh`."""
     group: object
     rank: int
+    devices: tuple
+    offset: int
     size: int
-    device: torch.device
 
     @property
-    def devices(self):
-        """The devices this process sweeps on: its own."""
-        return (self.device,)
+    def device(self):
+        return self.devices[0]
 
     def shares(self, tiles):
-        """[(device, this rank's share of ``tiles``)]: one entry."""
-        return [(self.device, _deal(tiles, self.rank, self.size))]
+        """[(device, its share of ``tiles``)], one entry per device of this
+        rank, dealt by global device index."""
+        return _shares(tiles, self.devices, self.offset, self.size)
 
     def copies(self, t):
-        """[``t``]: a rank sweeps on one device."""
-        return [t]
+        """As :meth:`LocalMesh.copies`, over this rank's devices."""
+        return _copies(t, self.devices)
 
     def sum(self, parts):
-        """The one part summed over the ranks, in place."""
-        (part,) = parts
-        return psum_(part, self)
+        """The parts (one per device of this rank) summed into the first,
+        then over the ranks, in place; returns it."""
+        return psum_(_local_sum(parts), self)
 
     def min(self, parts):
-        """The one part's elementwise minimum over the ranks, in place."""
-        (part,) = parts
-        return pmin_(part, self)
+        """The parts' elementwise minimum, into the first, then over the
+        ranks, in place; returns it."""
+        return pmin_(_local_min(parts), self)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,29 +155,22 @@ class LocalMesh:
         """[(device, its share of the per-tile tensors ``tiles``)], one
         entry per device of the mesh, dealt round-robin; each share on its
         device."""
-        return [(dev, tuple(t.to(dev) for t in _deal(tiles, k, self.size)))
-                for k, dev in enumerate(self.devices)]
+        return _shares(tiles, self.devices, 0, self.size)
 
     def copies(self, t):
         """``t`` (on the primary device) for the first device, and a copy of
         its own for each other one."""
-        return [t] + [t.to(dev, copy=True) for dev in self.devices[1:]]
+        return _copies(t, self.devices)
 
     def sum(self, parts):
         """The parts (one per device) summed into the first, on the primary
         device; returns it."""
-        out = parts[0]
-        for part in parts[1:]:
-            out.add_(part.to(out.device))
-        return out
+        return _local_sum(parts)
 
     def min(self, parts):
         """The parts' elementwise minimum, into the first, on the primary
         device; returns it."""
-        out = parts[0]
-        for part in parts[1:]:
-            torch.minimum(out, part.to(out.device), out=out)
-        return out
+        return _local_min(parts)
 
 
 def requested():
@@ -182,6 +220,91 @@ def visible_devices(device="cuda"):
     return [device]
 
 
+def host_devices(visible, rank, hosts=None, env=None):
+    """The devices rank ``rank`` of a process group takes by default (the
+    host rule), from the ``visible`` devices of its host: every one when
+    it is the only rank on its host (the JAX package's layout, one
+    process per host), else one of its own, ``visible[local_index %
+    len(visible)]`` (one process per card). A rank's local index and the
+    number of ranks on its host come from ``env``'s ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` when both are set (torchrun sets them), else
+    from ``hosts``, the host name of every rank: its order among its
+    host's ranks. More ranks on a host than its CUDA cards raises
+    RuntimeError (two ranks would share a card); ranks on the CPU share
+    it."""
+    env = {} if env is None else env
+    if all(k in env for k in LOCAL_ENV):
+        index, count = (int(env[k]) for k in LOCAL_ENV)
+    else:
+        mine = hosts[rank]
+        index, count = hosts[:rank].count(mine), hosts.count(mine)
+    visible = list(visible)
+    if not visible:
+        raise RuntimeError("no CUDA card is visible to this rank; name its"
+                           " devices (make_mesh(devices=[...]))")
+    if count == 1:
+        return visible
+    if count > len(visible) and visible[0].type == "cuda":
+        raise RuntimeError(f"{count} ranks on this host, but"
+                           f" {len(visible)} visible cards")
+    return [visible[index % len(visible)]]
+
+
+def _all_gather(obj):
+    """``obj`` of every rank of the default group, in rank order: one
+    ``all_gather_object``, through a gloo group of its own (torn down
+    after) where the group's backend is another, so that it needs no
+    device."""
+    out = [None] * dist.get_world_size()
+    if len(out) == 1:
+        return [obj]
+    if dist.get_backend() == "gloo":
+        dist.all_gather_object(out, obj)
+        return out
+    group = dist.new_group(backend="gloo")
+    try:
+        dist.all_gather_object(out, obj, group=group)
+    finally:
+        dist.destroy_process_group(group)
+    return out
+
+
+def rank_devices(device="cuda"):
+    """This rank's devices by the host rule (:func:`host_devices`) over the
+    visible devices of ``device``'s type (:func:`visible_devices`: every
+    card for CUDA), in an initialised process group. A collective (one
+    gather of the host names) unless the launcher set ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE``: every rank calls it, in the same order."""
+    env = os.environ
+    hosts = (None if all(k in env for k in LOCAL_ENV)
+             else _all_gather(socket.gethostname()))
+    visible = visible_devices(torch.device(device).type)
+    return host_devices(visible, dist.get_rank(), hosts, env)
+
+
+def _mesh_devices(devices):
+    """``devices`` as a tuple of torch.devices: at least one, all of one
+    type (else ValueError). A CUDA device needs a card; a bare "cuda" is
+    :func:`~..ops.engine.resolve_device`'s card (in a process group the
+    host rule's, else the current one)."""
+    # the engines import this module: import theirs at call time
+    from ..ops.engine import resolve_device
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("a mesh needs at least one device")
+    if len({d.type for d in devices}) != 1:
+        raise ValueError(f"a mesh's devices are of one type: {devices}")
+    if devices[0].type != "cuda":
+        return tuple(devices)
+    bare = None
+    if any(d.index is None for d in devices):
+        bare = resolve_device("cuda")
+        if bare.index is None:
+            bare = torch.device("cuda", torch.cuda.current_device())
+    return tuple(bare if d.index is None else resolve_device(d)
+                 for d in devices)
+
+
 def make_mesh(n_devices=None, devices=None):
     """The mesh of the density stages, with the JAX package's signature.
 
@@ -191,25 +314,29 @@ def make_mesh(n_devices=None, devices=None):
     raises RuntimeError rather than mesh the CPU. ``devices`` may name a
     device more than once (``["cpu"] * 4``, ``["cuda:0"] * 2``).
 
-    Inside an initialised process group: the :class:`Mesh` over its ranks,
-    on this rank's device, ``devices[0]`` if given (e.g. ``["cpu"]`` under
-    gloo), else "cuda" (:func:`~..ops.engine.resolve_device`). A rank
-    drives one device, and ``n_devices``, if given, must be the group's
-    size."""
-    # the engines import this module: import theirs at call time
-    from ..ops.engine import resolve_device
+    Inside an initialised process group: the :class:`Mesh` over every
+    rank's devices. ``devices`` names this rank's (e.g. ``["cpu"] * 2``
+    under gloo; an empty or mixed-type list raises ValueError); without
+    it the rank takes the host rule's cards (:func:`rank_devices`). The
+    first is made the current CUDA device before any collective.
+    ``n_devices``, if given, must be the global device count (else
+    ValueError on every rank). In a group ``make_mesh`` is a collective:
+    one gather of the ranks' device counts (and one of the host names
+    where the host rule decides: without ``devices``, or for a bare
+    "cuda"), so every rank calls it, in the same order."""
     if dist.is_available() and dist.is_initialized():
-        if devices is not None and len(devices) != 1:
-            raise ValueError("in a process group each rank meshes one"
-                             f" device, not {len(devices)}")
-        size = dist.get_world_size()
+        devices = _mesh_devices(rank_devices() if devices is None
+                                else devices)
+        if devices[0].type == "cuda":
+            torch.cuda.set_device(devices[0])
+        rank = dist.get_rank()
+        counts = _all_gather(len(devices))
+        size = sum(counts)
         if n_devices is not None and n_devices != size:
             raise ValueError(f"n_devices={n_devices}, but the process"
-                             f" group has {size} ranks")
-        device = resolve_device(devices[0] if devices else "cuda")
-        if device.type == "cuda":
-            torch.cuda.set_device(device)
-        return Mesh(dist.group.WORLD, dist.get_rank(), size, device)
+                             f" group's ranks have {size} devices")
+        return Mesh(dist.group.WORLD, rank, devices, sum(counts[:rank]),
+                    size)
     if devices is None:
         devices = visible_devices()
         if not devices:
@@ -217,16 +344,7 @@ def make_mesh(n_devices=None, devices=None):
                                " devices to mesh (devices=[...])")
         if n_devices is not None:
             devices = devices[:n_devices]
-    devices = tuple(resolve_device(d) for d in devices)
-    if not devices:
-        raise ValueError("a mesh needs at least one device")
-    if len({d.type for d in devices}) != 1:
-        raise ValueError(f"a mesh's devices are of one type: {devices}")
-    # a bare "cuda" is the current card
-    devices = tuple(torch.device("cuda", torch.cuda.current_device())
-                    if d.type == "cuda" and d.index is None else d
-                    for d in devices)
-    return LocalMesh(devices)
+    return LocalMesh(_mesh_devices(devices))
 
 
 def mesh_size(mesh) -> int:

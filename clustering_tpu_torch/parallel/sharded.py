@@ -4,15 +4,17 @@ Counterpart of the public functions of ``clustering_tpu/parallel/
 sharded.py``: ``populations``, ``nearest_neighbors`` and
 ``screening_labels``, with the JAX functions' keywords and a mesh of
 either kind from :func:`~.mesh.make_mesh` (several devices of this
-process, or the ranks of a process group). ``backend`` follows the port's
-ops functions: "auto" (the default here) and "pallas" take the tile-sweep
-route; "xla", the JAX functions' default, selects the dense programs that
-are not ported (below) and raises ValueError, as does anything else.
-Each function runs the single-device engine with ``mesh``: the whole tile
-list is planned once per process, each device sweeps its round-robin
-share, and the partial results merge; the caller gets the whole,
-bit-identical to one device's. ``ThresholdSeriesScreener(...,
-mesh=mesh)`` distributes a screening series the same way.
+process, or the ranks of a process group, each with one device or
+several). ``backend`` follows the port's ops functions: "auto" (the
+default here) and "pallas" take the tile-sweep route; "xla", the JAX
+functions' default, selects the dense programs that are not ported
+(below) and raises ValueError, as does anything else. Each function runs
+the single-device engine with ``mesh``: the whole tile list is planned
+once per process, each device sweeps its round-robin share (by global
+device index on a group's mesh), and the partial results merge; the
+caller gets the whole, bit-identical to one device's.
+``ThresholdSeriesScreener(..., mesh=mesh)`` distributes a screening
+series the same way.
 
 Not ported from the JAX package:
 
