@@ -62,15 +62,18 @@ Phases, each printing its own lines; any failure exits non-zero:
      on the same inputs (exact), launches, evaluated pairs and the bound,
      the larger of 3 D flops per pair over the FP32 peak and the bytes
      over the HBM rate, with the card's name and power limit;
-  9. big N, the engines as in phase 6 on the default route at N = 2^23:
-     every stage must say it planned on the device and launch its
+  9. big N, the engines as in phase 6 on the default route at N = 2^24,
+     the JAX package's largest (``bigN_check.py``'s ``BIG_N``): every
+     stage must say it planned on the device and launch its
      bidirectional kernel; phase 5's output invariants; a sampled exact
      check of 256 frames against all N (populations, both neighbours, and
      the last clustering's label against every admissible neighbour's);
      phase 6's tier check and plan check. It prints the stage walls,
-     t_plan, t_best_sort,
-     each kernel's time (CUDA events around its calls) and the peak of
-     device memory;
+     t_plan, t_best_sort, the populations' host finish, the tier split,
+     each kernel's time (CUDA events around its calls), launches,
+     evaluated pairs and share of the FP32 bound, the peak of device
+     memory per stage (the peak statistics reset as each stage starts)
+     and the host's peak RSS;
  10. mesh (``clustering_tpu_torch.parallel``): phase 6's configuration
      through the engines on 2 and 4 gloo ranks sharing cuda:0 (spawned
      processes, a FileStore rendezvous, a join time limit), the switches
@@ -125,7 +128,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      (exact); (c) the density CLI in this process at phase 5's argv, the
      visible devices (``parallel.mesh.visible_devices``) patched to cuda:0
      twice: it meshes them and writes phase 5's files, byte for byte; (d)
-     the engines at N = 2^23 on a mesh of 2: phase 9's results bit for
+     the engines at N = 2^24 on a mesh of 2: phase 9's results bit for
      bit, its invariants and sampled exact check, and the peak device
      memory; (e) where ``nvidia-smi -L`` lists more than one card, the
      CLI in a process of its own over two real cards against phase 5's
@@ -146,6 +149,17 @@ Phases, each printing its own lines; any failure exits non-zero:
      or more cards, (b) unpatched over two real cards, else a line that
      says why not. It prints rank 0's stage walls, each rank's merges and
      ``all_reduce`` seconds, and the CLI process's walls.
+ 14. the top of the users' range through the CLI: ``synthetic_fel`` at N
+     = 10^7 (not a multiple of the blocks, so the padding runs at scale),
+     written as ``%.6f`` text by the port's native formatter (its first
+     rows byte-equal to ``np.savetxt``'s), then phase 5's argv in this
+     process: exit 0, 10^7 data lines in pop, fe, nn and each clust.*
+     (read back with the port's native readers), phase 5's invariants,
+     the sampled exact check of 256 frames on the neighbours the CLI's
+     engine returned, the three bidirectional kernels launched and the
+     populations finished by the native pass. It prints the stage walls,
+     the text I/O's seconds, the peak of device memory and the host's
+     peak RSS.
 
 The line before the last holds the kernels' JSON record, from phase 8;
 the last line is {"ok": true, "device": {...}}. It imports nothing of JAX
@@ -532,6 +546,19 @@ def phase_kernels(torch):
 
 # -- phases 4 and 5 ------------------------------------------------------------
 
+def stage_walls(out):
+    """{stage: seconds} of the density CLI's ``-v`` stage timer lines in
+    ``out``."""
+    return {m.group(1): float(m.group(2))
+            for m in re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", out)}
+
+
+def substages(out):
+    """{stage: its sub-stage text} of the ``-v`` lines that
+    CLUSTERING_TPU_PROFILE_SUBSTAGES adds to ``out``."""
+    return dict(re.findall(r"\[(\w+) substages: ([^\]]*)\]", out))
+
+
 def run_cli(workdir, coords, device, extra=()):
     """Run the port's density CLI in ``workdir`` on ``device`` with the
     ``extra`` arguments, on ``coords`` (None: the ``coords.dat`` there);
@@ -643,8 +670,7 @@ def phase_main(torch, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
-    walls = {m.group(1): float(m.group(2))
-             for m in re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", out)}
+    walls = stage_walls(out)
     for stage in ["populations", "nearest neighbors"] + [
             f"screening {t}" for t in THRESHOLDS]:
         if stage not in walls:
@@ -659,7 +685,7 @@ def phase_main(torch, tmp):
                         r" prefetched)?\]", out)
     built = re.search(r"\[screener built during nearest neighbors in"
                       r" ([0-9.]+)s\]", out)
-    subs = dict(re.findall(r"\[(\w+) substages: ([^\]]*)\]", out))
+    subs = substages(out)
     if nn_line is None or not nn_line.group(3):
         fail("the CLI's NN stage did not take the band prefetch")
     if built is None:
@@ -688,7 +714,7 @@ def phase_main(torch, tmp):
 # -- phase 6 -------------------------------------------------------------------
 
 def run_engines(torch, coords, stats=None, keep=None, mesh=None,
-                tier_qs="auto"):
+                tier_qs="auto", mem=None):
     """populations -> free energies -> nearest neighbours -> screening
     series through the port's engines on the card, as the density CLI runs
     them: without a mesh, populations starts the NN band pass and the
@@ -699,7 +725,8 @@ def run_engines(torch, coords, stats=None, keep=None, mesh=None,
     and ``keep``, if given, with the density engine, the screener, the
     linking distance, the free energies and the screener's build seconds
     without a mesh (``engine``, ``series``, ``md2``, ``fe``,
-    ``screener_build``)."""
+    ``screener_build``), and ``mem``, if given, with each stage's peak of
+    device memory (the peak statistics reset as the stage starts)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from clustering_tpu_torch.ops.density import free_energies
@@ -709,11 +736,15 @@ def run_engines(torch, coords, stats=None, keep=None, mesh=None,
     walls, modes = {}, {}
 
     def stage(name, fn, *args, sync=True):
+        if mem is not None:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn(*args)
         if sync:
             torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t0
+        if mem is not None:
+            mem[name] = torch.cuda.max_memory_allocated()
         return out
 
     def record(name, last):
@@ -1135,27 +1166,33 @@ def compare_outputs(torch, got, want):
     return bad, err
 
 
-def evaluated_pairs(name, args):
-    """Pairs one recorded call evaluates: the tiles or grid cells it
-    sweeps (label-min: only the dirty ones) x row_block x col_block."""
+def evaluated_tiles(name, args):
+    """The tiles or grid cells one call sweeps (label-min: only the dirty
+    ones): an int for the dense grids, else a 0-d device tensor, taken
+    without a host sync."""
     from clustering_tpu_torch.ops import kernels
     rb, cb = args[-2], args[-1]
     if name in ("pops_tiles", "nn_tiles"):
         words = args[4] if name == "pops_tiles" else args[6]
         cols_t = args[2] if name == "nn_tiles" else args[1]
         nrb, ncb = args[0].shape[1] // rb, cols_t.shape[1] // cb
-        tiles = len(kernels.kept_tiles(words, nrb, ncb)[0])
-    elif name in ("pops_bidir", "pops_sparse"):
-        ti, tj, rmask = args[-5], args[-4], args[-3]
-        tiles = int(((tj >= 0) & (rmask != 0)).sum())
-    elif name in ("nn_bidir", "nn_sparse"):
-        tiles = int((args[-4] >= 0).sum())
-    elif name == "label_min_bidir":
-        tiles = int((args[-3] != 0).sum())
-    else:  # label_min_sparse: ti, tj, row_block_offset, dirty
-        tj, dirty = args[-5], args[-3]
-        tiles = int(((tj >= 0) & (dirty[tj.clamp_min(0).long()] != 0)).sum())
-    return tiles * rb * cb
+        return len(kernels.kept_tiles(words, nrb, ncb)[0])
+    if name in ("pops_bidir", "pops_sparse"):
+        tj, rmask = args[-4], args[-3]
+        return ((tj >= 0) & (rmask != 0)).sum()
+    if name in ("nn_bidir", "nn_sparse"):
+        return (args[-4] >= 0).sum()
+    if name == "label_min_bidir":
+        return (args[-3] != 0).sum()
+    # label_min_sparse: ti, tj, row_block_offset, dirty
+    tj, dirty = args[-5], args[-3]
+    return ((tj >= 0) & (dirty[tj.clamp_min(0).long()] != 0)).sum()
+
+
+def evaluated_pairs(name, args):
+    """Pairs one recorded call evaluates: :func:`evaluated_tiles` x
+    row_block x col_block."""
+    return int(evaluated_tiles(name, args)) * args[-2] * args[-1]
 
 
 def moved_bytes(args, outs):
@@ -1305,7 +1342,7 @@ def plan_check(torch, where, engine, series, md2, nn):
 
 # -- phase 9 -------------------------------------------------------------------
 
-N_BIG = 1 << 23
+N_BIG = 1 << 24
 N_SAMPLE = 256
 SAMPLE_COLS = 1 << 18
 
@@ -1407,7 +1444,9 @@ def sampled_check(torch, coords, pops, fe, nn, clust, md2, where="big N"):
 def kernel_events(names):
     """CUDA events around every call of the named kernels' wrappers while
     the block runs, on the current stream (no host sync); yields {name:
-    [(start, end), ...]}, to be read after a synchronize."""
+    [(start, end, pairs), ...]}, to be read after a synchronize: ``pairs``
+    is the call's evaluated pairs (:func:`evaluated_tiles` x row_block x
+    col_block), a device tensor."""
     import torch
     from clustering_tpu_torch.ops import kernels
     events = {name: [] for name in names}
@@ -1420,7 +1459,8 @@ def kernel_events(names):
             start.record()
             out = fn(*args, **kw)
             end.record()
-            events[name].append((start, end))
+            pairs = evaluated_tiles(name, args) * (args[-2] * args[-1])
+            events[name].append((start, end, pairs))
             return out
         return call
 
@@ -1433,41 +1473,140 @@ def kernel_events(names):
             setattr(kernels, name, fn)
 
 
-def phase_big_n(torch):
+@contextlib.contextmanager
+def host_rss(period=0.02):
+    """Sample this process's resident set (``/proc/self/statm``) every
+    ``period`` seconds on a thread while the block runs; yields a dict
+    whose ``"text"``, after the block, reports the largest sample (or
+    "not measured" where statm cannot be read) beside ``getrusage``'s
+    peak of the whole process."""
+    import resource
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+    got, stop = {"peak": None}, threading.Event()
+
+    def sample():
+        while True:
+            try:
+                with open("/proc/self/statm") as fh:
+                    rss = int(fh.read().split()[1]) * page
+            except (OSError, ValueError, IndexError):
+                return
+            got["peak"] = max(got["peak"] or 0, rss)
+            if stop.wait(period):
+                return
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield got
+    finally:
+        stop.set()
+        thread.join()
+        peak = ("not measured" if got["peak"] is None
+                else f"{got['peak']} bytes")
+        maxrss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        got["text"] = (f"host peak RSS {peak} (sampled every"
+                       f" {period * 1e3:.0f} ms), getrusage ru_maxrss"
+                       f" {maxrss} bytes (the process so far)")
+
+
+def finish_ab(eng, pops, order_name):
+    """The populations' two host finishes on one padded download rebuilt
+    from ``pops`` in the layout ``order_name`` of the engine ``eng``: the
+    native pass and the numpy scatter + cast, in turns native, numpy,
+    numpy, native, each equal to ``pops``. Returns {finish: [s, s]}."""
+    from clustering_tpu_torch.ops import engine
+    order = eng._padded(order_name)[0]
+    counts = np.zeros((1, eng.n_pad), dtype=np.int32)
+    counts[0, :eng.n] = pops[order]
+    native = engine.textio_native.pops_finish
+    secs = {"native": [], "numpy": []}
+    for want in ("native", "numpy", "numpy", "native"):
+        engine.textio_native.pops_finish = (
+            native if want == "native" else lambda *args: None)
+        try:
+            t0 = time.perf_counter()
+            out, how = eng._pops_finish(counts, order, [RADIUS])
+            secs[how].append(time.perf_counter() - t0)
+        finally:
+            engine.textio_native.pops_finish = native
+        if how != want or not np.array_equal(out[RADIUS], pops):
+            fail(f"the {want} populations finish does not give the run's"
+                 " populations")
+    return secs
+
+
+def upper_tiles(n_pad, rb, cb):
+    """Tiles of the (n_pad / rb, n_pad / cb) grid that meet the strict
+    upper triangle (``pruning.upper_mask``), in closed form."""
+    nrb, ncb = n_pad // rb, n_pad // cb
+    return int((ncb - (np.arange(nrb, dtype=np.int64) * rb) // cb).sum())
+
+
+def phase_big_n(torch, smi):
     """The engines at N_BIG: every stage planned on the device, the three
     bidirectional kernels launched, the output invariants, the sampled
-    exact check and the plan check. Returns the coordinates and the run's
-    (pops, nn, clusterings), on the host."""
+    exact check, the tier check and the plan check. Prints the stage
+    walls and plans, the populations' host finish, the tier split, each
+    kernel's ms, launches, pairs and share of the FP32 bound, the peak
+    device memory per stage and the host's peak RSS. Returns the
+    coordinates and the run's (pops, nn, clusterings), on the host."""
     from clustering_tpu_torch.ops import kernels
     from clustering_tpu_torch.ops.density import free_energies
     coords = synthetic_fel(N_BIG, DIM, seed=0)
-    torch.cuda.reset_peak_memory_stats()
-    stats, keep = {}, {}
-    with kernel_events(BIDIR_KERNELS) as events:
+    stats, keep, mem = {}, {}, {}
+    with host_rss() as rss, kernel_events(BIDIR_KERNELS) as events:
         kernels.reset_launches()
-        pops, nn, clust, walls, _ = run_engines(torch, coords, stats, keep)
+        pops, nn, clust, walls, _ = run_engines(torch, coords, stats, keep,
+                                                mem=mem)
         launches = {name: kernels.LAUNCHES[name] for name in BIDIR_KERNELS}
-    peak = torch.cuda.max_memory_allocated()
-    kernel_ms = {name: sum(a.elapsed_time(b) for a, b in ev)
-                 for name, ev in events.items()}
-    plans, tiles = plan_report(f"N={N_BIG} D={DIM}", walls, stats)
-    print(f"[big N] N={N_BIG}: launches {json.dumps(launches)}, kernel ms"
-          f" {json.dumps(kernel_ms)} ({sum(kernel_ms.values()) / 1e3:.3f} s"
-          f" of {sum(walls.values()):.3f} s of stage walls), tiles"
-          f" {json.dumps(tiles)}, max_memory_allocated {peak} bytes")
+        torch.cuda.synchronize()
+    print(f"[big N] {smi}; the run's {rss['text']}")
+    tag = f"N={N_BIG} D={DIM}"
+    plans, tiles = plan_report(tag, walls, stats)
+    st = stats["populations"]
+    eng = keep["engine"]
+    print(f"[big N] {tag}: populations finished by the {st['finish']} pass"
+          f" in {st['t_finish']:.3f}s; the same download finished native /"
+          f" numpy in turns {json.dumps(finish_ab(eng, pops, st['order']))}"
+          f" s; peak device memory per stage {json.dumps(mem)}, run"
+          f" {max(mem.values())} bytes (the peak statistics reset as each"
+          " stage starts)")
+    nn_st = stats["nearest neighbors"]
+    upper = upper_tiles(eng.n_pad, eng.row_block, eng.col_block)
+    print(f"[big N] {tag}: NN {nn_st['mode']} phase 2, frames per tier"
+          f" {nn_st.get('tier_frames')}, taus {nn_st.get('taus')}; band"
+          f" {nn_st['band_tiles']} and phase 2 {nn_st['phase2_tiles']} of"
+          f" the {upper} upper-triangular tiles"
+          f" ({nn_st['phase2_tiles'] / upper:.4f})")
+    total_ms = 0.0
+    for name, ev in events.items():
+        ms = sum(a.elapsed_time(b) for a, b, _ in ev)
+        pairs = int(sum(p for _, _, p in ev)) if ev else 0
+        bound = pairs * 3 * DIM / PEAK_FLOPS * 1e3
+        total_ms += ms
+        print(f"[big N] {tag}: {name} {launches[name]} launches, {pairs}"
+              f" pairs, kernel {ms:.3f} ms, FP32 bound {bound:.3f} ms,"
+              f" share {bound / ms if ms else 0.0:.3f}")
+    print(f"[big N] {tag}: kernels {total_ms / 1e3:.3f} s of"
+          f" {sum(walls.values()):.3f} s of stage walls; tiles"
+          f" {json.dumps(tiles)}")
     if set(plans.values()) != {"device"}:
         fail(f"a stage at N={N_BIG} was not planned on the device: {plans}")
     for name, count in launches.items():
         if count <= 0:
             fail(f"kernel {name} was not launched at N={N_BIG}")
+    if st["finish"] != "native":
+        fail(f"the populations at N={N_BIG} were finished by the"
+             f" {st['finish']} pass")
     fe = free_energies(pops)
     check_outputs("big N", N_BIG, pops, fe, np.stack([nn[0], nn[2]], 1),
                   np.stack([nn[1], nn[3]], 1), clust[-1])
     sampled_check(torch, coords, pops, fe, nn, clust[-1], keep["md2"])
     print(f"[big N] screener built during NN in {keep['screener_build']:.3f}s")
     tier_check(torch, f"N={N_BIG}", keep, nn, stats, walls)
-    plan_check(torch, f"N={N_BIG}", keep["engine"], keep["series"],
-               keep["md2"], nn)
+    plan_check(torch, f"N={N_BIG}", eng, keep["series"], keep["md2"], nn)
     return coords, (pops, nn, clust)
 
 
@@ -1683,8 +1822,7 @@ def cli_process(tmp, name, distributed=False, env_extra=None, code=None):
         fail(f"the CLI process {name} exited {proc.returncode}:\n"
              f"{proc.stdout}\n{proc.stderr}")
     same_files(main_dir, d, f"the CLI process {name}")
-    walls = {m.group(1): float(m.group(2)) for m in
-             re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", proc.stdout)}
+    walls = stage_walls(proc.stdout)
     return proc.stdout, wall, walls
 
 
@@ -1775,7 +1913,7 @@ def phase_cold_cli(tmp):
         out, wall, walls = cli_process(tmp, f"cold{i}",
                                        env_extra=dict(env,
                                                       **{SUBSTAGES_ENV: "1"}))
-        subs = dict(re.findall(r"\[(\w+) substages: ([^\]]*)\]", out))
+        subs = substages(out)
         if ("t_device_warm" in subs.get("populations", "")) != (label == "on"):
             fail(f"the device warm's seconds do not match warms {label}")
         print(f"[cold CLI] run {i + 1}, warms {label}: {wall:.3f}s of"
@@ -2100,8 +2238,7 @@ def phase_local_cli(torch, tmp):
         fail("the CLI's screening did not run on the mesh")
     same_files(os.path.join(tmp, "main"), d,
                "the CLI on a local mesh of cuda:0 x 2")
-    walls = {m.group(1): float(m.group(2))
-             for m in re.finditer(r"\[([a-z .0-9]+): ([0-9.]+)s\]", out)}
+    walls = stage_walls(out)
     launches = {name: kernels.LAUNCHES[name] for name in BIDIR_KERNELS}
     print(f"[local mesh] CLI in-process on cuda:0 x 2: {wall:.3f}s, stages"
           f" {json.dumps(walls)}, launches {json.dumps(launches)}; files"
@@ -2274,6 +2411,182 @@ def phase_group_cli(tmp, all_cards):
           " to phase 5's")
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+# the top of the users' range (PERF.md section 1): not a multiple of the
+# default blocks' 4096
+N_CLI_BIG = 10 ** 7
+CLI_IO = ("read_coords", "write_pops", "write_fes", "write_neighborhood",
+          "write_clustered_trajectory")
+
+
+@contextlib.contextmanager
+def cli_probe():
+    """While the block runs, record what the density CLI's engine (not the
+    warms' quiet scratch engines) read and returned, and the seconds of
+    the CLI's text I/O calls: yields {"engine": the engine, "coords": the
+    frames it holds, "pops_stats": its populations' ``last_stats``, "nn":
+    what its NN returned, "io": {function: seconds summed over its
+    calls}}."""
+    import threading
+    from clustering_tpu_torch.ops.engine import DensityEngine
+    from clustering_tpu_torch.utils import io as tio
+    got, lock, saved = {"io": {}}, threading.Lock(), []
+
+    def patch(owner, attr, wrap):
+        fn = getattr(owner, attr)
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, wrap(fn))
+
+    def pops(fn):
+        def call(self, *args, **kw):
+            out = fn(self, *args, **kw)
+            if not self._quiet:
+                got.update(engine=self, coords=self.coords,
+                           pops_stats=dict(self.last_stats["populations"]))
+            return out
+        return call
+
+    def nn(fn):
+        def call(self, *args, **kw):
+            out = fn(self, *args, **kw)
+            if not self._quiet:
+                got["nn"] = out
+            return out
+        return call
+
+    def timed_io(name):
+        def wrap(fn):
+            def call(*args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    with lock:
+                        got["io"][name] = (got["io"].get(name, 0.0)
+                                           + time.perf_counter() - t0)
+            return call
+        return wrap
+
+    patch(DensityEngine, "populations", pops)
+    patch(DensityEngine, "nearest_neighbors", nn)
+    for name in CLI_IO:
+        patch(tio, name, timed_io(name))
+    try:
+        yield got
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+
+def data_line_count(path):
+    """Lines of a file that are not comments (``#`` first), counted on its
+    bytes, not as Python strings (10^7 lines per file in phase 14)."""
+    with open(path, "rb") as fh:
+        raw = fh.read()
+    return (raw.count(b"\n") - raw.count(b"\n#")
+            - int(raw.startswith(b"#")))
+
+
+def phase_cli_big(torch, tmp, smi):
+    """Phase 14: the density CLI at phase 5's argv on ``synthetic_fel`` at
+    N_CLI_BIG frames, written as %.6f text by the port's native formatter
+    and run in this process: exit 0, N_CLI_BIG data lines in every output
+    file (read back with the port's native readers), the invariants, the
+    sampled exact check on the neighbours the CLI's engine returned, the
+    three bidirectional kernels launched and the native populations
+    finish. Prints the stage walls, the text I/O's seconds, the peak
+    device memory and the host's peak RSS."""
+    from clustering_tpu_torch.ops import kernels
+    from clustering_tpu_torch.ops.density import free_energies
+    from clustering_tpu_torch.ops.neighbors import compute_sigma2
+    from clustering_tpu_torch.utils import io as tio
+    from clustering_tpu_torch.utils import textio_native
+    n = N_CLI_BIG
+    d = os.path.join(tmp, "cli_big")
+    os.makedirs(d)
+    coords = synthetic_fel(n, DIM, seed=0)
+    t0 = time.perf_counter()
+    text = textio_native.format_f_rows(coords, 6)
+    if text is None:
+        fail("the port's native text library did not load")
+    with open(os.path.join(d, "coords.dat"), "wb") as fh:
+        fh.write(text)
+    t_write = time.perf_counter() - t0
+    head = io.BytesIO()
+    np.savetxt(head, coords[:1000], fmt="%.6f")
+    if bytes(text[:len(head.getvalue())]) != head.getvalue():
+        fail("the native %.6f text differs from np.savetxt's")
+    del text, coords
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    os.environ[SUBSTAGES_ENV] = "1"
+    t0 = time.perf_counter()
+    try:
+        with host_rss() as rss, cli_probe() as probe:
+            out = run_cli(d, None, "cuda")
+            torch.cuda.synchronize()
+    finally:
+        del os.environ[SUBSTAGES_ENV]
+    wall = time.perf_counter() - t0
+    launches = {name: kernels.LAUNCHES[name] for name in BIDIR_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    walls = stage_walls(out)
+    subs = substages(out)
+    names = ["pop", "fe", "nn"] + [f"clust.{t}" for t in THRESHOLDS]
+    t0 = time.perf_counter()
+    pops = tio.read_single_column(os.path.join(d, "pop"), dtype=int)
+    fe_file = tio.read_free_energies(os.path.join(d, "fe"))
+    nn_file = tio.read_neighborhood(os.path.join(d, "nn"))
+    clust = tio.read_clustered_trajectory(
+        os.path.join(d, f"clust.{THRESHOLDS[-1]}"))
+    t_read = time.perf_counter() - t0
+    lines = {name: data_line_count(os.path.join(d, name)) for name in names}
+    stages = ["populations", "nearest neighbors", "screening setup"] + [
+        f"screening {t}" for t in THRESHOLDS]
+    tag = f"[cli big] N={n} D={DIM}"
+    print(f"{tag}: {smi}; {wall:.3f}s in the CLI, stage walls"
+          f" {sum(walls.get(k, 0.0) for k in stages):.3f}s"
+          f" {json.dumps(walls)}; substages {json.dumps(subs)}")
+    print(f"{tag}: text I/O seconds: coords.dat written (native %.6f)"
+          f" {t_write:.3f}, the CLI's calls {json.dumps(probe['io'])} (the"
+          f" writes on worker threads beside the stages), outputs read back"
+          f" {t_read:.3f}; data lines {json.dumps(lines)}")
+    print(f"{tag}: launches {json.dumps(launches)}; max_memory_allocated"
+          f" {peak} bytes; the CLI's {rss['text']}")
+    for stage in stages:
+        if stage not in walls:
+            fail(f"no wall for stage {stage!r} in the CLI at N={n}")
+    if any(count != n for count in lines.values()):
+        fail(f"the CLI at N={n} wrote {lines} data lines")
+    for name in BIDIR_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the CLI at N={n}")
+    st = probe["pops_stats"]
+    print(f"{tag}: populations planned on the {st['plan']}, finished by the"
+          f" {st['finish']} pass in {st['t_finish']:.3f}s; the same download"
+          " finished native / numpy in turns"
+          f" {json.dumps(finish_ab(probe['engine'], pops, st['order']))} s")
+    if st["finish"] != "native":
+        fail(f"the CLI's populations at N={n} were finished by the"
+             f" {st['finish']} pass")
+    nn = probe["nn"]
+    for i in (0, 2):
+        if not np.array_equal(nn_file[i], nn[i]):
+            fail(f"the nn file's ids differ from the engine's at N={n}")
+    for i in (1, 3):
+        if not np.allclose(nn_file[i], nn[i], rtol=1e-5, atol=0.0):
+            fail(f"the nn file's distances are not the engine's at N={n}")
+    fe = free_energies(pops)
+    if not np.allclose(fe_file, fe, rtol=1e-5, atol=1e-6):
+        fail("fe file does not match the populations")
+    check_outputs("cli big", n, pops, fe, np.stack([nn[0], nn[2]], 1),
+                  np.stack([nn[1], nn[3]], 1), clust)
+    md2 = np.float32(4.0 * compute_sigma2(nn[1]))
+    sampled_check(torch, probe["coords"], pops, fe, nn, clust, md2,
+                  where="cli big")
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2308,7 +2621,7 @@ def main():
         phase_share_holds(torch, calls, smi)
         del calls, sym_calls, tiles_calls
         lap("8, 12 (b)")
-        big = phase_big_n(torch)
+        big = phase_big_n(torch, smi)
         lap("9")
         phase_mesh(torch, runs, tmp, smi)
         lap("10")
@@ -2327,6 +2640,8 @@ def main():
         phase_group_mesh(torch, runs, four, tmp, smi)
         phase_group_cli(tmp, all_cards)
         lap("13")
+        phase_cli_big(torch, tmp, smi)
+        lap("14")
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -555,6 +555,31 @@ long long format_g_rows(const float* v, long long n_rows, long long n_cols,
   });
 }
 
+// Fixed-point rows: "%.*f %.*f ...\n" per (n_cols,) float32 row, the
+// value promoted to double -- the bytes of np.savetxt(fmt="%.<prec>f"),
+// whose Python formatting is correctly rounded as glibc's printf is.
+// Values of magnitude 1e15 or more are refused (-1): their "%f" text
+// outgrows the per-row bound.
+long long format_f_rows(const float* v, long long n_rows, long long n_cols,
+                        int prec, char* out, long long cap) {
+  if (prec < 0 || prec > 17) return -1;
+  return format_mt(n_rows, out, cap, n_cols * (prec + 20) + 1,
+                   [v, n_cols, prec](long long i, char* o) {
+    int w = 0;
+    const float* row = v + i * n_cols;
+    for (long long c = 0; c < n_cols; ++c) {
+      const double x = (double)row[c];
+      if (!(x > -1e15 && x < 1e15)) return -1;
+      if (c) o[w++] = ' ';
+      int k = snprintf(o + w, prec + 20, "%.*f", prec, x);
+      if (k < 0 || k >= prec + 20) return -1;
+      w += k;
+    }
+    o[w++] = '\n';
+    return w;
+  });
+}
+
 // NN-finish host postlude: take the raw (2, n) int32 neighbor-id
 // download (INT32_MAX marks frames with no admissible neighbor), emit
 // zeroed int64 id rows plus fp32 squared distances recomputed from the

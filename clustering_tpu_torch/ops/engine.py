@@ -417,7 +417,10 @@ class DensityEngine:
         """dict radius -> (N,) int64 populations (self included); the
         sweep's mode ("bidir" or "symmetric") and planner ("device" or
         "host") are in ``last_stats["populations"]``, with ``t_plan`` and
-        the part of it that chose the layout, ``t_best_sort``.
+        the part of it that chose the layout, ``t_best_sort``, the layout
+        it swept, ``order`` ("dim0", "morton"; "orig" unpruned), and the
+        host finish, ``finish`` ("native" or "numpy") and ``t_finish``
+        (:meth:`_pops_finish`).
 
         ``prune=False`` sweeps the JAX engine's unpruned plan: the frames
         in their given order ("orig"), every tile, row-side
@@ -442,6 +445,7 @@ class DensityEngine:
                 (self.n_pad // self.row_block, self.n_pad // self.col_block),
                 dtype=torch.bool, device=self.device))
             rmask = torch.full_like(ti, (1 << len(radii)) - 1)
+        stats["order"] = name
         radii2 = self._put(np.asarray(
             [np.float32(r) * np.float32(r) for r in radii], np.float32))
         stats["computed_tiles"] = int(len(ti))
@@ -460,25 +464,44 @@ class DensityEngine:
                 # the self pair (d2 = 0) counts in its diagonal tile, which
                 # one device sweeps
                 parts.append(kernels.pops_sparse(ct, ct, *args))
-        counts = self._spread.sum(parts)[:, :self.n]
+        counts = self._spread.sum(parts)
         if bidir:
             counts = counts + 1  # each frame's self count, once
         counts_band = None
         if (nn_band_radius is not None and nn_band_radius in radii
                 and self.mesh is None
                 and self.n_pad // self.col_block > 2 * NN_BAND_BLOCKS):
-            counts_band = self._relayout(counts[radii.index(nn_band_radius)],
-                                         name, NN_BAND_ORDER)
+            counts_band = self._relayout(
+                counts[radii.index(nn_band_radius), :self.n], name,
+                NN_BAND_ORDER)
         counts = counts.cpu().numpy()
         if counts_band is not None:
             self._start_band_prefetch(counts_band)
             stats["nn_band_prefetch"] = True
         stats["t_sweep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, stats["finish"] = self._pops_finish(counts,
+                                                 self._padded(name)[0], radii)
+        stats["t_finish"] = time.perf_counter() - t0
         self.last_stats["populations"] = stats
-        order, _ = self._padded(name)
+        return out
+
+    def _pops_finish(self, counts_padded, order, radii):
+        """Host postlude of a populations sweep (the JAX engine's
+        ``_pops_finish``): scatter-unsort the padded (R, N_pad) int32
+        download to original frame positions (``order``: layout position
+        -> original id) and widen it to int64, in one native pass when the
+        library loads, else by a numpy scatter and a cast per radius (the
+        same arrays). Returns ({radius: (N,) int64}, "native" or
+        "numpy")."""
+        res = textio_native.pops_finish(counts_padded, self.n, order)
+        if res is not None:
+            return {r: res[i] for i, r in enumerate(radii)}, "native"
+        counts = counts_padded[:, :self.n]
         unsorted = np.empty_like(counts)
         unsorted[:, order] = counts
-        return {r: unsorted[i].astype(np.int64) for i, r in enumerate(radii)}
+        return ({r: unsorted[i].astype(np.int64)
+                 for i, r in enumerate(radii)}, "numpy")
 
     # -- nearest neighbours ----------------------------------------------------
 
@@ -721,7 +744,7 @@ class DensityEngine:
 
     # -- the tiered phase 2 ----------------------------------------------------
 
-    def _nn_tiered_plan(self, rows, keys, tier_qs, bidir):
+    def _nn_tiered_plan(self, rows, keys, tier_qs, bidir, stats):
         """Phase 2 re-sorted by (ub-quantile tier, position in the winner
         layout ``rows``, its (coords_t, fe, oid) for each device, the
         engine's first), each row block bounded by
@@ -734,12 +757,16 @@ class DensityEngine:
         the rows re-sorted, against the winner's columns, the list planned
         on the host. Returns (rows, cols, tiles): the sweep's rows on the
         engine's device, its columns for each device (None: the rows') and
-        its tile list (or None)."""
+        its tile list (or None). ``stats`` receives the tier split:
+        ``tier_frames``, the frames of each tier, and ``taus``."""
         rb, cb = self.row_block, self.col_block
         n_tiers = len(tier_qs) + 1
         d_band, _ = kernels.unpack_keys(keys)
         tier, taus = _ub_tiers(d_band, self.n, tuple(tier_qs))
         tier_w, perm = _tier_sort_perm(tier, rows[0][2], self.n, n_tiers)
+        stats["tier_frames"] = torch.bincount(
+            tier_w, minlength=n_tiers + 1)[:n_tiers].tolist()
+        stats["taus"] = taus.tolist()
         if bidir:
             *t_rows, active = _tiered_layout_sym(*rows[0], tier_w, taus,
                                                  perm, rb, cb, n_tiers)
@@ -864,7 +891,8 @@ class DensityEngine:
             qs = self._nn_tier_qs(tier_qs, block_tiles, bidir)
             if qs is not None:
                 t_rows, t_cols, t_tiles = self._planned(
-                    stats, self._nn_tiered_plan, rows, keys, qs, bidir)
+                    stats, self._nn_tiered_plan, rows, keys, qs, bidir,
+                    stats)
                 est = 0 if t_tiles is None else len(t_tiles[0])
                 saved = (block_tiles - est) * float(rb * cb)
                 if tier_qs != "auto" or saved > self.TIERED_MIN_SAVED_PAIRS:

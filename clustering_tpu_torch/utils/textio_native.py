@@ -289,6 +289,30 @@ def format_g_rows(rows):
                        41 * d + 2, extra=(_LL(d),))
 
 
+def format_f_rows(rows, prec=6):
+    """b"%.<prec>f %.<prec>f ...\\n" per float32 row of a 2-D array
+    (bytes-like): the bytes ``np.savetxt(fmt="%.<prec>f")`` writes. None
+    when the native library (or a stale .so without the symbol) is
+    unavailable; ValueError for a magnitude of 1e15 or more, or ``prec``
+    outside 0-17."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "format_f_rows"):
+        return None
+    v = np.ascontiguousarray(rows, dtype=np.float32)
+    n, d = v.shape
+    f32p = ctypes.POINTER(ctypes.c_float)
+    fn = lib.format_f_rows
+    fn.restype = _LL
+    fn.argtypes = [f32p, _LL, _LL, ctypes.c_int, _U8P, _LL]
+    try:
+        return _run_format(fn, [v.ctypes.data_as(f32p)], n,
+                           d * (prec + 20) + 1,
+                           extra=(_LL(d), ctypes.c_int(prec)))
+    except RuntimeError as exc:
+        raise ValueError("format_f_rows: a value of magnitude 1e15 or"
+                         f" more, or precision {prec} outside 0-17") from exc
+
+
 def format_kv_ig(keys, vals, swap=False):
     """b"key value\\n" (or "value key\\n" with swap) rows: int64 keys,
     %g values (bytes-like)."""

@@ -8,7 +8,7 @@ each run in a process of its own, in the order old, new, new, old:
      argv and data) with ``CLUSTERING_TPU_PROFILE_SUBSTAGES`` set: its
      process wall, stage walls and sub-stage times; every run must write
      the same pop, nn and clust.* files (but for the time stamp);
-  engines, big: the engines' pipeline at N = 2^20, and 2^23 (each
+  engines, big: the engines' pipeline at N = 2^20, and 2^24 (each
      checkout's own ``chip_smoke.run_engines``, after an untimed run in
      the same process, so that neither the CUDA context nor the kernels'
      first loads fall in it): stage walls, populations' and NN's
@@ -141,7 +141,7 @@ def main():
                    help="root of the other checkout (old)")
     p.add_argument("--parts", default="cli,engines",
                    help="comma-separated parts: cli, engines (2^20), big"
-                        " (2^23)")
+                        " (2^24, chip_smoke.N_BIG)")
     p.add_argument("--out", help="write the summary JSON here")
     args = p.parse_args()
     import torch
