@@ -19,29 +19,42 @@ host, its cards dealt by global device index), while ranks that share a
 host keep one card each, ``cuda:local_index % device_count`` (torchrun's
 layout, or the switches with one process per card).
 
-Two runtime switches of the JAX CLI apply to ``density``:
+Runtime switches of the JAX CLI that apply to ``density``:
 
 - ``CLUSTERING_TPU_DEVICE_WARM`` (on unless "0", CUDA only): the first
   device op on a daemon thread while the coordinates are read -- the CUDA
   context, one small op and its synchronize, and the kernel library's
-  load (built first if needed). Its seconds join the populations
-  sub-stage line (``t_device_warm``, ``CLUSTERING_TPU_PROFILE_SUBSTAGES``).
+  load (built first if needed), in a ``cli.device_warm`` span on thread
+  "device-warm". Its seconds join the populations sub-stage line
+  (``t_device_warm``).
 - ``CLUSTERING_TPU_PROFILE=<dir>``: the whole run under
-  ``torch.profiler`` (the CPU, and CUDA where it is available), written as
-  a Chrome trace to ``<dir>/trace.json`` (``trace.rank<r>.json`` in a
-  process group) when ``main`` ends, also on an error exit. Each
-  ``stage_timer`` scope shows in it as an annotation of the stage's name.
+  ``torch.profiler`` (the CPU of every thread, and CUDA where it is
+  available), written as a Chrome trace to ``<dir>/trace.json``
+  (``trace.rank<r>.json`` in a process group) when ``main`` ends, also on
+  an error exit. Each span of the port (``utils.timer``) opened while it
+  records shows in it as an annotation of its name on its own thread,
+  on the trace's clock.
+- ``CLUSTERING_TPU_PROFILE_SUBSTAGES``: each device stage's sub-stage
+  times in the ``-v`` log (``[populations substages: ...]``), and as the
+  log's last line, ``[spans] {json}``: every span and counter of the run
+  (``utils.timer.line``).
+
+The run's spans on the main thread: ``cli.start`` from the process's
+creation (from ``main``'s call on a later call in the process) to the
+mode's start, the read of the coordinates for ``density``, with
+``cli.imports`` (torch and the port's modules) inside it; the density
+mode's own (``models.density``); ``cli.teardown``, which joins the
+device warm and writes the trace.
 """
 
 import argparse
 import os
 import sys
 import threading
-import time
 
 from . import VERSION_STRING
-from .utils import io
-from .utils.logger import logger, set_verbose
+from .utils import io, timer
+from .utils.logger import is_verbose, logger, set_verbose
 
 GENERAL_HELP = f"""
          ~~~ clustering-tpu {VERSION_STRING} ~~~
@@ -325,43 +338,52 @@ def density_device():
 
 
 PROFILE_ENV = "CLUSTERING_TPU_PROFILE"
+SUBSTAGES_ENV = "CLUSTERING_TPU_PROFILE_SUBSTAGES"
 
 
 def _start_device_warm(device):
     """The first device op on a daemon thread (CLUSTERING_TPU_DEVICE_WARM):
     ``torch.cuda.init()``, one small op and a synchronize, and the kernel
-    library. Returns (the thread, a dict that receives its seconds as
-    ``t_device_warm``). A failure is left to the stages, which meet it
-    again where they need the device."""
+    library, in a ``cli.device_warm`` span under the span open here.
+    Returns the thread. A failure is left to the stages, which meet it
+    again where they need the device (the span records it as its
+    ``error``)."""
     import torch
     from .ops import _build
-    times = {}
 
     def work():
-        t0 = time.perf_counter()
         try:
-            torch.cuda.init()
-            torch.ones(8, device=device).add_(1)
-            torch.cuda.synchronize(device)
-            _build.library()
+            with timer.span("cli.device_warm"):
+                torch.cuda.init()
+                torch.ones(8, device=device).add_(1)
+                torch.cuda.synchronize(device)
+                _build.library()
         except Exception:
-            return
-        times["t_device_warm"] = time.perf_counter() - t0
+            pass
 
-    thread = threading.Thread(target=work, daemon=True)
+    thread = threading.Thread(target=timer.carried(work), name="device-warm",
+                              daemon=True)
     thread.start()
-    return thread, times
+    return thread
 
 
 def _start_profile():
     """The whole-run trace of CLUSTERING_TPU_PROFILE: a started
-    ``torch.profiler.profile`` of the CPU, and of CUDA when available."""
+    ``torch.profiler.profile`` of the CPU of every thread (a torch
+    without ``profile_all_threads`` records the main thread's), and of
+    CUDA when available."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    kwargs = {}
+    try:
+        kwargs["experimental_config"] = torch.profiler._ExperimentalConfig(
+            profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass
+    prof = profile(activities=activities, **kwargs)
     prof.start()
     return prof
 
@@ -380,7 +402,16 @@ def _stop_profile(prof, profile_dir, distributed):
     logger(f"~~~ profile trace written to {path}")
 
 
+_STARTED = False
+
+
 def main(argv=None):
+    global _STARTED
+    timer.reset()
+    # from the process's creation on the first call of the process
+    start = timer.span("cli.start", start_ns=None if _STARTED
+                       else timer.process_start_ns()).open()
+    _STARTED = True
     argv = sys.argv[1:] if argv is None else list(argv)
     if not argv or argv[0] in ("-h", "--help"):
         sys.stderr.write(GENERAL_HELP)
@@ -394,28 +425,39 @@ def main(argv=None):
     distributed = False
     profile_dir = None
     if args.mode == "density":
-        from .parallel import mesh
+        with timer.span("cli.imports"):
+            from .models import density  # noqa: F401 (timed here)
+            from .parallel import mesh
         if mesh.requested():
             mesh.initialize(os.environ.get(DEVICE_ENV, "cuda"))
             distributed = True
         profile_dir = os.environ.get(PROFILE_ENV)
     prof = _start_profile() if profile_dir else None
+    threads = []
     try:
-        return _run(args, argv, distributed)
+        return _run(args, argv, distributed, start, threads)
     finally:
-        if prof is not None:
-            _stop_profile(prof, profile_dir, distributed)
-        if distributed:
-            import torch.distributed
-            torch.distributed.destroy_process_group()
+        start.close()
+        with timer.span("cli.teardown"):
+            for thread in threads:
+                thread.join()
+            if prof is not None:
+                _stop_profile(prof, profile_dir, distributed)
+            if distributed:
+                import torch.distributed
+                torch.distributed.destroy_process_group()
+        if (args.mode == "density" and is_verbose()
+                and os.environ.get(SUBSTAGES_ENV)):
+            logger(timer.line())
 
 
-def _run(args, argv, distributed):
+def _run(args, argv, distributed, start, threads):
+    """The mode's run; ``start`` is the ``cli.start`` span, closed as the
+    mode begins, and ``threads`` receives the threads to join."""
     device = density_device() if args.mode == "density" else None
-    warm = None
     if (device is not None and device.type == "cuda"
             and os.environ.get("CLUSTERING_TPU_DEVICE_WARM") != "0"):
-        warm = _start_device_warm(device)
+        threads.append(_start_device_warm(device))
 
     verbose = args.mode == "stats" or getattr(args, "verbose", False)
     set_verbose(verbose)
@@ -431,11 +473,11 @@ def _run(args, argv, distributed):
     header = io.make_header(args.mode, argv=["clustering"] + argv)
     comments_map = io.default_comments_map()
 
+    start.close()
     try:
         if args.mode == "density":
             from .models import density
-            density.main(args, header, comments_map, device,
-                         None if warm is None else warm[1])
+            density.main(args, header, comments_map, device)
         elif args.mode == "mpp":
             from .models import mpp
             mpp.main(args, header, comments_map)
@@ -463,9 +505,6 @@ def _run(args, argv, distributed):
             raise
         print(f"error: {exc}", file=sys.stderr)
         return 1
-    finally:
-        if warm is not None:
-            warm[0].join()
     return 0
 
 

@@ -24,6 +24,16 @@ stage is dealt over the mesh's devices.
 ``CLUSTERING_TPU_PROFILE_SUBSTAGES`` adds each device stage's sub-stage
 times to the ``-v`` log.
 
+Spans (``utils.timer``): on the main thread ``density.setup`` (the mesh
+and the engine), the four stage timers, ``cli.write_wait`` wherever the
+main thread waits on writes and ``cli.teardown``; on the workers, each
+in a thread of its own name, the writes (``io.write``, pools "write" and
+"io"), the screener's build (``screener.build``, pool "write"), the
+screening steps' postludes (``screening.post``, pool "post") and the
+warms (``warm.pops`` and ``warm.nn`` on thread "warm-stages",
+``warm.screen_early`` and ``warm.screen``), each the child of the span
+that handed it over.
+
 On a CUDA device without a mesh, daemon threads pay each stage's
 first-use costs ahead of it, where the JAX CLI warms its compiles: the
 engine's ``precompile_pops`` and ``precompile_nn`` once the engine
@@ -37,7 +47,6 @@ scratch engines of their own, so the files are the same either way.
 import os
 import sys
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -50,7 +59,7 @@ from ..ops import density as dops
 from ..ops import neighbors as nops
 from ..ops.engine import DensityEngine, warm_failed, warm_on
 from ..ops.screening import ScreeningEngine, ThresholdSeriesScreener
-from ..utils.timer import stage_timer
+from ..utils.timer import adopt, carried, last, span, stage_timer
 
 
 def _die(msg):
@@ -229,12 +238,12 @@ def _log_substages(engine, stage_key, extra=None):
         logger(f"      [{stage_key} substages: {parts}]")
 
 
-def _build_screener(coords, free_energy, thresholds, device):
-    """(the series screener without lower-fe edges, its build seconds)."""
-    t0 = time.perf_counter()
-    series = ThresholdSeriesScreener(coords, free_energy, thresholds,
-                                     device=device)
-    return series, time.perf_counter() - t0
+def _build_screener(coords, free_energy, thresholds, device, parent):
+    """The series screener without lower-fe edges, built (on a worker
+    thread) under the span ``parent``."""
+    with adopt(parent):
+        return ThresholdSeriesScreener(coords, free_energy, thresholds,
+                                       device=device)
 
 
 def _precompile_on(engine):
@@ -258,38 +267,31 @@ def run_mesh(device):
     return pmesh.make_mesh(devices=devices) if len(devices) > 1 else None
 
 
-def main(args, header_comment, comments_map, device, device_warm=None):
-    """density mode on ``device``, or on the mesh of :func:`run_mesh`.
-    ``device_warm``, if given, is a dict whose entries (the CLI's first-op
-    warm, ``t_device_warm``) join the populations sub-stage line."""
+def main(args, header_comment, comments_map, device):
+    """density mode on ``device``, or on the mesh of :func:`run_mesh`."""
     coords = io.read_coords(args.file)
-    mesh = run_mesh(device)
-    if mesh is not None:
-        device = mesh.device
-        # this process's devices
-        logger(f"~~~ mesh of {mesh.size} devices: "
-               + ", ".join(map(str, mesh.devices)))
-    engine = DensityEngine(coords, device=device, mesh=mesh)
     free_energy = None
     # the pops / fe / nn files are written on worker threads while the
     # next stage computes, and the screener is built beside the NN stage
     # (a third worker, so that it does not queue behind the two writes);
     # every write is joined before the end
-    write_pool = ThreadPoolExecutor(max_workers=3)
+    write_pool = ThreadPoolExecutor(max_workers=3, thread_name_prefix="write")
     deferred_writes = []
     warms = []
+    engine = None
 
-    def warm(fn, *args):
-        """Run ``fn(*args)`` on a daemon thread, joined before the end."""
+    def warm(name, fn, parent=None):
+        """Run ``fn()`` on a daemon thread ``name``, under ``parent``
+        (default: the span open here), joined before the end."""
         if _precompile_on(engine):
-            warms.append(threading.Thread(target=fn, args=args,
-                                          daemon=True))
+            warms.append(threading.Thread(target=carried(fn, parent),
+                                          name=name, daemon=True))
             warms[-1].start()
 
-    def _defer_write(fn, path, data):
+    def _defer_write(fn, path, data, parent):
         snap = dict(comments_map)
-        deferred_writes.append(
-            write_pool.submit(fn, path, data, header_comment, snap))
+        deferred_writes.append(write_pool.submit(
+            carried(fn, parent), path, data, header_comment, snap))
 
     will_run_pops = (not args.free_energy_input and not args.input
                      and (args.free_energy or args.population
@@ -305,32 +307,50 @@ def main(args, header_comment, comments_map, device, device_warm=None):
         # one thread: the warms' host work would only contend for the
         # interpreter lock with each other and with the stages
         if will_run_pops:
-            engine.precompile_pops(radii)
+            with span("warm.pops"):
+                engine.precompile_pops(radii)
         if will_run_nn:
-            engine.precompile_nn()
+            with span("warm.nn"):
+                engine.precompile_nn()
 
-    if will_run_pops or will_run_nn:
-        warm(stage_warms)
     try:
+        with span("density.setup"):
+            mesh = run_mesh(device)
+            if mesh is not None:
+                device = mesh.device
+                # this process's devices
+                logger(f"~~~ mesh of {mesh.size} devices: "
+                       + ", ".join(map(str, mesh.devices)))
+            engine = DensityEngine(coords, device=device, mesh=mesh)
+            if will_run_pops or will_run_nn:
+                warm("warm-stages", stage_warms)
         free_energy = _free_energy_stage(args, engine, comments_map,
-                                         _defer_write, device_warm)
+                                         _defer_write)
         nh, series_fut = _nn_stage(args, engine, free_energy, comments_map,
                                    header_comment, write_pool,
                                    deferred_writes, warm)
         if args.output:
             _cluster_stage(args, coords, free_energy, nh, comments_map,
                            header_comment, device, mesh, series_fut, warm)
-        for fut in deferred_writes:
-            fut.result()
+        with span("cli.write_wait"):
+            for fut in deferred_writes:
+                fut.result()
     finally:
-        write_pool.shutdown()
-        for thread in warms:
-            thread.join()
+        with span("cli.teardown"):
+            write_pool.shutdown()
+            for thread in warms:
+                thread.join()
     logger("~~~ freeing memory")
 
 
-def _free_energy_stage(args, engine, comments_map, defer_write,
-                       device_warm=None):
+def _device_warm_seconds():
+    """``t_device_warm`` for the populations sub-stage line: the CLI's
+    ``cli.device_warm`` span, if it ended without an error."""
+    warm = last("cli.device_warm")
+    return None if warm is None else {"t_device_warm": warm.seconds}
+
+
+def _free_energy_stage(args, engine, comments_map, defer_write):
     if args.input and (args.free_energy or args.nearest_neighbors):
         _die("error: for input (-i) -D/-B should be used.")
     logger("~~~ free energy and population")
@@ -355,9 +375,9 @@ def _free_energy_stage(args, engine, comments_map, defer_write,
                  " energies.\n       why did you define -R ?")
         radii = list(args.radii)
         logger("    using radii: " + ", ".join(str(r) for r in radii))
-        with stage_timer("populations"):
+        with stage_timer("populations") as stage:
             pops_map = engine.populations(radii)
-        _log_substages(engine, "populations", device_warm)
+        _log_substages(engine, "populations", _device_warm_seconds())
         if args.check:
             _check_backends(engine.coords, "pops", pops_map, radii=radii,
                             device=engine.device)
@@ -367,11 +387,11 @@ def _free_energy_stage(args, engine, comments_map, defer_write,
             if args.population:
                 defer_write(io.write_pops,
                             io.stringprintf(args.population + "_%f", radius),
-                            pops)
+                            pops, stage)
             if args.free_energy:
                 defer_write(io.write_fes,
                             io.stringprintf(args.free_energy + "_%f", radius),
-                            dops.free_energies(pops))
+                            dops.free_energies(pops), stage)
         return None
     if args.radius is None:
         # no radius: the lumping radius from NN statistics
@@ -393,20 +413,20 @@ def _free_energy_stage(args, engine, comments_map, defer_write,
     will_run_nn = (not args.nearest_neighbors_input
                    and (args.nearest_neighbors or args.output)
                    and not args.input)
-    with stage_timer("populations"):
+    with stage_timer("populations") as stage:
         pops = engine.populations(
             [radius], nn_band_radius=radius if will_run_nn else None)[radius]
-    _log_substages(engine, "populations", device_warm)
+    _log_substages(engine, "populations", _device_warm_seconds())
     if args.check:
         _check_backends(engine.coords, "pops", {radius: pops},
                         radii=[radius], device=engine.device)
     if args.population:
         logger("    storing population in: " + args.population)
-        defer_write(io.write_pops, args.population, pops)
+        defer_write(io.write_pops, args.population, pops, stage)
     free_energy = dops.free_energies(pops)
     if args.free_energy:
         logger("    storing free energy in: " + args.free_energy)
-        defer_write(io.write_fes, args.free_energy, free_energy)
+        defer_write(io.write_fes, args.free_energy, free_energy, stage)
     return free_energy
 
 
@@ -430,35 +450,9 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
         _die("error: nearest-neighbor search requires free energies"
              " (-d/-p/-o or -D).")
     logger("    calculating nearest neighbors")
-    # the screener depends on (coords, fe, thresholds) alone: build it on
-    # the write pool while NN runs (on a mesh, uploads from a worker
-    # thread could race the collectives: the screening stage builds it)
-    series_fut = None
-    if (engine.mesh is None and args.output
-            and args.threshold_screening is not None and not args.input):
-        try:
-            thresholds = _parse_threshold_series(
-                list(args.threshold_screening), free_energy)[3]
-        except ValueError:
-            thresholds = None  # the screening stage reports it
-        if thresholds is not None:
-            series_fut = write_pool.submit(_build_screener, engine.coords,
-                                           free_energy, thresholds,
-                                           engine.device)
-    if (series_fut is not None
-            and os.environ.get("CLUSTERING_TPU_EARLY_SCREEN_WARM") != "0"):
-        # the screening warm during NN, at the linking distance estimated
-        # from the prefetched band pass
-        def early_screen_warm():
-            try:
-                est = engine.band_sigma2_estimate()
-                if est is not None:
-                    series_fut.result()[0].precompile(
-                        np.float32(4.0 * est), compile_only=True)
-            except Exception as exc:  # the stages raise it themselves
-                warm_failed("early screening warm", exc)
-        warm(early_screen_warm)
-    with stage_timer("nearest neighbors"):
+    with stage_timer("nearest neighbors") as stage:
+        series_fut = _start_screener(args, engine, free_energy, write_pool,
+                                     warm, stage)
         nh = engine.nearest_neighbors(free_energy)
     _log_substages(engine, "nn")
     if args.check:
@@ -472,10 +466,43 @@ def _nn_stage(args, engine, free_energy, comments_map, header_comment,
     if args.nearest_neighbors:
         logger("    storing nearest neighbors in: " + args.nearest_neighbors)
         deferred_writes.append(write_pool.submit(
-            io.write_neighborhood, args.nearest_neighbors,
+            carried(io.write_neighborhood, stage), args.nearest_neighbors,
             nh[0], nh[1], nh[2], nh[3],
             io.append_comments_map(header_comment, comments_map)))
     return nh, series_fut
+
+
+def _start_screener(args, engine, free_energy, write_pool, warm, stage):
+    """The Future of the series screener, built on the write pool while NN
+    runs (it depends on (coords, fe, thresholds) alone), with the early
+    screening warm; None on a mesh (uploads from a worker thread could
+    race the collectives: the screening stage builds it) or without a
+    series. ``stage`` is the NN stage's span, the build's parent."""
+    if (engine.mesh is not None or not args.output
+            or args.threshold_screening is None or args.input):
+        return None
+    try:
+        thresholds = _parse_threshold_series(
+            list(args.threshold_screening), free_energy)[3]
+    except ValueError:
+        return None  # the screening stage reports it
+    series_fut = write_pool.submit(_build_screener, engine.coords,
+                                   free_energy, thresholds, engine.device,
+                                   stage)
+    if os.environ.get("CLUSTERING_TPU_EARLY_SCREEN_WARM") != "0":
+        # the screening warm during NN, at the linking distance estimated
+        # from the prefetched band pass
+        def early_screen_warm():
+            with span("warm.screen_early"):
+                try:
+                    est = engine.band_sigma2_estimate()
+                    if est is not None:
+                        series_fut.result().precompile(
+                            np.float32(4.0 * est), compile_only=True)
+                except Exception as exc:  # the stages raise it themselves
+                    warm_failed("early screening warm", exc)
+        warm("warm-screen-early", early_screen_warm)
+    return series_fut
 
 
 def _cluster_stage(args, coords, free_energy, nh, comments_map,
@@ -514,33 +541,39 @@ def _cluster_stage(args, coords, free_energy, nh, comments_map,
     logger("\n        fe    frames")
     sigma2 = nops.compute_sigma2(nh[1])
     max_dist2 = np.float32(4.0 * sigma2)
-    with stage_timer("screening setup"):
+    with stage_timer("screening setup") as setup:
         if series_fut is None:
             series = ThresholdSeriesScreener(coords, free_energy, thresholds,
                                              device=device,
                                              hd_neighbors=(nh[2], nh[3]),
                                              mesh=mesh)
         else:
-            series, t_build = series_fut.result()
+            series = series_fut.result()
             series.set_hd_neighbors((nh[2], nh[3]))
     if series_fut is not None:
         logger(f"    [screener built during nearest neighbors in"
-               f" {t_build:.3f}s]")
+               f" {series.build_seconds:.3f}s]")
     if warm is not None:
-        warm(series.precompile, max_dist2)
+        def screen_warm():
+            with span("warm.screen"):
+                series.precompile(max_dist2)
+        warm("warm-screen", screen_warm, setup)
     # each step's label download + naming and its file write overlap the
     # next threshold's sweeps
-    with ThreadPoolExecutor(max_workers=2) as post_pool, \
-            ThreadPoolExecutor(max_workers=2) as io_pool:
+    with ThreadPoolExecutor(max_workers=2,
+                            thread_name_prefix="post") as post_pool, \
+            ThreadPoolExecutor(max_workers=2,
+                               thread_name_prefix="io") as io_pool:
         pending = []
         for k, tk in enumerate(thresholds):
             logger("    %6s %9i" % ("%.2f" % tk,
                                     int(series.n_below_per_band[k])))
-            with stage_timer("screening %.2f" % tk):
+            with stage_timer("screening %.2f" % tk) as step:
                 fut = series.step_submit(k, max_dist2, post_pool)
             path = io.stringprintf(args.output + ".%0.2f", float(tk))
-            pending.append(io_pool.submit(
+            pending.append(io_pool.submit(carried(
                 lambda f=fut, p=path: io.write_clustered_trajectory(
-                    p, f.result(), header_comment, comments_map)))
-        for fut in pending:
-            fut.result()
+                    p, f.result(), header_comment, comments_map), step)))
+        with span("cli.write_wait"):
+            for fut in pending:
+                fut.result()

@@ -23,9 +23,9 @@ Either way the caller holds the whole result. Without a mesh the engine
 runs the same code over one device.
 """
 
+import contextlib
 import os
 import threading
-import time
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ import torch.distributed as dist
 from ..parallel.mesh import LocalMesh, Mesh, rank_devices
 from ..utils import textio_native
 from ..utils.logger import is_verbose, logger
+from ..utils.timer import adopt, count, current, span
 from . import kernels, pruning
 from .kernels import DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK
 from .pairwise import pair_d2
@@ -276,26 +277,30 @@ class DensityEngine:
     def _padded(self, name):
         """(order, padded) for layout ``name``: 'orig' (the frames as
         given), 'dim0' (stable sort by the first coordinate) or 'morton';
-        pads at 3e38."""
+        pads at 3e38. Built once, in a ``layout.sort.<name>`` span."""
         if name not in self._orders:
-            if name == "orig":
-                order = np.arange(self.n)
-            elif name == "dim0":
-                order = np.argsort(self.coords[:, 0], kind="stable")
-            elif name == "morton":
-                native = textio_native.morton_order_pad(self.coords,
-                                                        n_pad=self.n_pad)
-                if native is not None:
-                    self._orders[name] = native
-                    return native
-                order = pruning.morton_order(self.coords)
-            else:
-                raise ValueError(name)
-            padded = np.full((self.n_pad, self.d), np.float32(3e38),
-                             dtype=np.float32)
-            padded[:self.n] = self.coords[order]
-            self._orders[name] = (order, padded)
+            with span("layout.sort." + name):
+                self._orders[name] = self._sorted(name)
         return self._orders[name]
+
+    def _sorted(self, name):
+        """(order, padded) of layout ``name``, built."""
+        if name == "orig":
+            order = np.arange(self.n)
+        elif name == "dim0":
+            order = np.argsort(self.coords[:, 0], kind="stable")
+        elif name == "morton":
+            native = textio_native.morton_order_pad(self.coords,
+                                                    n_pad=self.n_pad)
+            if native is not None:
+                return native
+            order = pruning.morton_order(self.coords)
+        else:
+            raise ValueError(name)
+        padded = np.full((self.n_pad, self.d), np.float32(3e38),
+                         dtype=np.float32)
+        padded[:self.n] = self.coords[order]
+        return order, padded
 
     def _cached(self, key, make):
         if key not in self._dev:
@@ -314,9 +319,13 @@ class DensityEngine:
         return None if tiles is None else tuple(map(self._put, tiles))
 
     def coords_t(self, name):
-        """(D, N_pad) float32 frame matrix of layout ``name`` on device."""
-        return self._cached(("ct", name),
-                            lambda: self._put(self._padded(name)[1].T))
+        """(D, N_pad) float32 frame matrix of layout ``name`` on device
+        (its upload: a ``layout.upload.<name>`` span)."""
+        def make():
+            padded = self._padded(name)[1]
+            with span("layout.upload." + name):
+                return self._put(padded.T)
+        return self._cached(("ct", name), make)
 
     def oid(self, name):
         """(N_pad,) int32 original ids of layout ``name`` (pads IMAX)."""
@@ -334,9 +343,14 @@ class DensityEngine:
                             lambda: self._spread.copies(fn(name)))
 
     def d2b(self, name):
-        """(nrb, ncb) bbox distance lower bounds of layout ``name``."""
-        return self._cached(("d2b", name), lambda: pruning.bbox_d2(
-            self.coords_t(name), self.row_block, self.col_block))
+        """(nrb, ncb) bbox distance lower bounds of layout ``name`` (a
+        ``layout.bbox.<name>`` span)."""
+        def make():
+            coords_t = self.coords_t(name)
+            with span("layout.bbox." + name):
+                return pruning.bbox_d2(coords_t, self.row_block,
+                                       self.col_block)
+        return self._cached(("d2b", name), make)
 
     def _best_sort(self, thresh2):
         """The layout (dim0 or morton) that prunes more tiles at this
@@ -386,12 +400,13 @@ class DensityEngine:
         restricted to the upper triangle and planned on the device when
         ``bidir``, else planned on the host. ``stats``, if given, receives
         ``t_best_sort``: the seconds spent choosing the layout (its frame
-        order, upload, bbox matrix and skip counts)."""
-        t0 = time.perf_counter()
+        order, upload, bbox matrix and skip counts), the
+        ``populations.best_sort`` span's."""
         r_max2 = np.float32(max(radii)) * np.float32(max(radii))
-        name = self._best_sort(r_max2)
+        with span("populations.best_sort") as best:
+            name = self._best_sort(r_max2)
         if stats is not None:
-            stats["t_best_sort"] = time.perf_counter() - t0
+            stats["t_best_sort"] = best.seconds
         rb, cb = self.row_block, self.col_block
         thresh2s = [r_max2] + [np.float32(r) * np.float32(r) for r in radii]
         if bidir:
@@ -431,58 +446,66 @@ class DensityEngine:
         runs while the caller unsorts and writes the counts; the next
         :meth:`nearest_neighbors` takes it if its free energies are those
         of these counts (``ops.density.free_energies``), bit for bit
-        (``last_stats["populations"]["nn_band_prefetch"]``)."""
-        t0 = time.perf_counter()
+        (``last_stats["populations"]["nn_band_prefetch"]``).
+
+        The times are the spans': ``t_plan`` the ``populations.plan``
+        span's (``t_best_sort`` its child ``populations.best_sort``),
+        ``t_sweep`` ``populations.sweep`` and ``populations.download``
+        together, ``t_finish`` ``populations.finish``."""
         radii = list(radii)
         bidir = prune and self.POPS_BIDIR
         stats = self._stats(bidir, "host" if prune and not bidir
                             else "device")
-        if prune:
-            name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
-        else:
-            name = "orig"
-            ti, tj = pruning.tile_list_device(torch.ones(
-                (self.n_pad // self.row_block, self.n_pad // self.col_block),
-                dtype=torch.bool, device=self.device))
-            rmask = torch.full_like(ti, (1 << len(radii)) - 1)
-        stats["order"] = name
-        radii2 = self._put(np.asarray(
-            [np.float32(r) * np.float32(r) for r in radii], np.float32))
-        stats["computed_tiles"] = int(len(ti))
-        shares = self._shares((ti, tj, rmask), stats)
-        stats["t_plan"] = time.perf_counter() - t0
-        self._log_stats("pops", stats["computed_tiles"])
-        t0 = time.perf_counter()
-        parts = []
-        for ct, r2, (_, share) in zip(self._layout_copies(self.coords_t,
-                                                          name),
-                                      self._spread.copies(radii2), shares):
-            args = (r2, self.n) + share + (self.row_block, self.col_block)
-            if bidir:
-                parts.append(kernels.pops_bidir(ct, *args))
+        with span("populations.plan") as plan:
+            if prune:
+                name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
             else:
-                # the self pair (d2 = 0) counts in its diagonal tile, which
-                # one device sweeps
-                parts.append(kernels.pops_sparse(ct, ct, *args))
-        counts = self._spread.sum(parts)
-        if bidir:
-            counts = counts + 1  # each frame's self count, once
-        counts_band = None
-        if (nn_band_radius is not None and nn_band_radius in radii
-                and self.mesh is None
-                and self.n_pad // self.col_block > 2 * NN_BAND_BLOCKS):
-            counts_band = self._relayout(
-                counts[radii.index(nn_band_radius), :self.n], name,
-                NN_BAND_ORDER)
-        counts = counts.cpu().numpy()
+                name = "orig"
+                ti, tj = pruning.tile_list_device(torch.ones(
+                    (self.n_pad // self.row_block,
+                     self.n_pad // self.col_block),
+                    dtype=torch.bool, device=self.device))
+                rmask = torch.full_like(ti, (1 << len(radii)) - 1)
+            stats["order"] = name
+            radii2 = self._put(np.asarray(
+                [np.float32(r) * np.float32(r) for r in radii], np.float32))
+            stats["computed_tiles"] = int(len(ti))
+            shares = self._shares((ti, tj, rmask), stats)
+        stats["t_plan"] = plan.seconds
+        self._log_stats("pops", stats["computed_tiles"])
+        with span("populations.sweep") as sweep:
+            parts = []
+            for ct, r2, (_, share) in zip(
+                    self._layout_copies(self.coords_t, name),
+                    self._spread.copies(radii2), shares):
+                args = (r2, self.n) + share + (self.row_block,
+                                               self.col_block)
+                if bidir:
+                    parts.append(kernels.pops_bidir(ct, *args))
+                else:
+                    # the self pair (d2 = 0) counts in its diagonal tile,
+                    # which one device sweeps
+                    parts.append(kernels.pops_sparse(ct, ct, *args))
+            counts = self._spread.sum(parts)
+            if bidir:
+                counts = counts + 1  # each frame's self count, once
+            counts_band = None
+            if (nn_band_radius is not None and nn_band_radius in radii
+                    and self.mesh is None
+                    and self.n_pad // self.col_block > 2 * NN_BAND_BLOCKS):
+                counts_band = self._relayout(
+                    counts[radii.index(nn_band_radius), :self.n], name,
+                    NN_BAND_ORDER)
+        with span("populations.download") as download:
+            counts = counts.cpu().numpy()
         if counts_band is not None:
             self._start_band_prefetch(counts_band)
             stats["nn_band_prefetch"] = True
-        stats["t_sweep"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        out, stats["finish"] = self._pops_finish(counts,
-                                                 self._padded(name)[0], radii)
-        stats["t_finish"] = time.perf_counter() - t0
+        stats["t_sweep"] = sweep.seconds + download.seconds
+        with span("populations.finish") as finish:
+            out, stats["finish"] = self._pops_finish(
+                counts, self._padded(name)[0], radii)
+        stats["t_finish"] = finish.seconds
         self.last_stats["populations"] = stats
         return out
 
@@ -523,10 +546,11 @@ class DensityEngine:
         return self.NN_BIDIR and self.col_block % self.row_block == 0
 
     def _planned(self, stats, fn, *args):
-        """``fn(*args)``, its seconds added to ``stats["t_plan"]``."""
-        t = time.perf_counter()
-        out = fn(*args)
-        stats["t_plan"] += time.perf_counter() - t
+        """``fn(*args)`` in an ``nn.plan`` span, whose seconds are added
+        to ``stats["t_plan"]``."""
+        with span("nn.plan") as plan:
+            out = fn(*args)
+        stats["t_plan"] += plan.seconds
         return out
 
     def _nn_sweep(self, rows, tiles, keys, bidir, stats, stage, cols=None):
@@ -537,12 +561,14 @@ class DensityEngine:
         device (``cols`` None: the rows'). Each device folds its share into
         a copy of ``keys`` of its own, all taken before the first launch,
         and the copies merge into ``keys`` by a MIN. Sets
-        ``stats[stage + "_tiles"]`` to the list's length and, on a mesh,
+        ``stats[stage + "_tiles"]`` to the list's length, which the
+        enclosing span counts under the same name, and, on a mesh,
         ``stats["per_device_tiles"][stage]`` to the shares' (both stay 0
         without a list)."""
         if tiles is None:
             return
         stats[stage + "_tiles"] = len(tiles[0])
+        count(stage + "_tiles", len(tiles[0]))
         shares = self._shares(tiles, stats, stage)
         parts = self._spread.copies(keys)
         for k, (_, (ti, tj)) in enumerate(shares):
@@ -588,7 +614,7 @@ class DensityEngine:
         after the band pass, "acts": the (dim0, morton) masks, "work":
         their active counts}; masks and counts stay on the device when
         ``bidir`` (no host sync but the list's count), else on the host.
-        Fills ``stats``' band_tiles and t_plan."""
+        Fills ``stats``' band_tiles and t_plan (its ``nn.plan`` spans)."""
         rb = self.row_block
         nrb = self.n_pad // rb
         keys = kernels.nn_keys_init(self.n_pad, self.device)
@@ -632,29 +658,33 @@ class DensityEngine:
         does (on the host: a 1-ulp difference of a device log would make
         every consumer miss), and enqueue phase 1 (:meth:`_nn_band`). The
         stash, or the exception that ended the thread, waits for
-        :meth:`_take_band_prefetch`."""
+        :meth:`_take_band_prefetch`. The thread, "band-prefetch", runs
+        in an ``nn.band_prefetch`` span whose parent is the span open
+        here."""
         from .density import free_energies
         self._take_band_prefetch()  # an unconsumed earlier one is dropped
         bidir = self._nn_bidir_ok()
+        parent = current()
 
         def work():
             try:
-                fe_band = free_energies(counts_band.cpu().numpy())
-                fe_pad = np.full(self.n_pad, np.inf, dtype=np.float32)
-                fe_pad[:self.n] = fe_band
-                stats = {"band_tiles": 0, "t_plan": 0.0}
-                band = self._nn_band(self._put(fe_pad), NN_BAND_ORDER,
-                                     NN_BAND_BLOCKS, bidir, stats)
-                band.update(fe_band=fe_band, order_name=NN_BAND_ORDER,
-                            band_blocks=NN_BAND_BLOCKS, bidir=bidir,
-                            band_tiles=stats["band_tiles"],
-                            nh_mean=_band_nh_mean(band["keys"]))
+                with adopt(parent), span("nn.band_prefetch"):
+                    fe_band = free_energies(counts_band.cpu().numpy())
+                    fe_pad = np.full(self.n_pad, np.inf, dtype=np.float32)
+                    fe_pad[:self.n] = fe_band
+                    stats = {"band_tiles": 0, "t_plan": 0.0}
+                    band = self._nn_band(self._put(fe_pad), NN_BAND_ORDER,
+                                         NN_BAND_BLOCKS, bidir, stats)
+                    band.update(fe_band=fe_band, order_name=NN_BAND_ORDER,
+                                band_blocks=NN_BAND_BLOCKS, bidir=bidir,
+                                band_tiles=stats["band_tiles"],
+                                nh_mean=_band_nh_mean(band["keys"]))
                 self._band_prefetch = band
             except Exception as exc:  # raised by _take_band_prefetch
                 self._band_prefetch_error = exc
 
-        self._band_prefetch_thread = threading.Thread(target=work,
-                                                      daemon=True)
+        self._band_prefetch_thread = threading.Thread(
+            target=work, name="band-prefetch", daemon=True)
         self._band_prefetch_thread.start()
 
     def _take_band_prefetch(self):
@@ -827,11 +857,13 @@ class DensityEngine:
         "-mesh" on a mesh), ``bidir``, the planner ("device" or "host"),
         ``mode`` ("tiered", "block-bound", or "dense" without a band),
         ``band_prefetched``, ``order``, the tile counts of both passes, and
-        three disjoint times: ``t_plan`` (building masks and tile lists),
-        ``t_band`` (the band sweep, or the wait for its prefetch, and the
-        order choice) and ``t_sweep`` (phase 2's sweep and the readback);
-        on a mesh, ``per_device_tiles`` holds each pass's shares,
-        {"band": .., "phase2": ..} (:func:`per_device_tiles`)."""
+        three disjoint times: ``t_plan`` (building masks, tile lists and
+        phase 2's layout: the ``nn.plan`` spans), ``t_band`` (the band
+        sweep, or the wait for its prefetch, and the order choice: the
+        ``nn.band`` or ``nn.band_wait`` span less its ``nn.plan``) and
+        ``t_sweep`` (phase 2's sweep and the readback: ``nn.phase2`` and
+        ``nn.download``); on a mesh, ``per_device_tiles`` holds each pass's
+        shares, {"band": .., "phase2": ..} (:func:`per_device_tiles`)."""
         fe = np.asarray(free_energy, dtype=np.float32)
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
@@ -846,71 +878,82 @@ class DensityEngine:
             stats["per_device_tiles"] = {"band": none, "phase2": none}
         banded = prune and ncb > 2 * band_blocks
 
-        t0 = time.perf_counter()
-        pf = self._take_band_prefetch()
-        if pf is not None and not (
-                banded and pf["order_name"] == order_name
-                and pf["band_blocks"] == band_blocks
-                and pf["bidir"] == bidir
-                and np.array_equal(pf["fe_band"],
-                                   fe[self._padded(order_name)[0]])):
-            pf = None
+        # the wait for a prefetched band pass (with the band pass itself
+        # nested, if the prefetch does not fit), else the band pass
+        pending = (self._band_prefetch_thread is not None
+                   or self._band_prefetch is not None)
+        with (span("nn.band_wait") if pending else span("nn.band")
+              if banded else contextlib.nullcontext()) as band_span:
+            pf = self._take_band_prefetch()
+            if pf is not None and not (
+                    banded and pf["order_name"] == order_name
+                    and pf["band_blocks"] == band_blocks
+                    and pf["bidir"] == bidir
+                    and np.array_equal(pf["fe_band"],
+                                       fe[self._padded(order_name)[0]])):
+                pf = None
+            if banded:
+                if pf is None:
+                    with (span("nn.band") if pending
+                          else contextlib.nullcontext()):
+                        band = self._nn_band(
+                            self._fe_layout(fe, order_name), order_name,
+                            band_blocks, bidir, stats)
+                else:
+                    band = pf
+                    stats.update(band_prefetched=True,
+                                 band_tiles=pf["band_tiles"])
+                keys, work = band["keys"], band["work"]
+                work = work.tolist() if bidir else work
+                # the smaller work wins, dim0 on ties
+                pick = 1 if work[1] < work[0] else 0
+                name, active = ("dim0", "morton")[pick], band["acts"][pick]
+                del band, pf
+                stats["order"] = name
         if banded:
-            if pf is None:
-                band = self._nn_band(self._fe_layout(fe, order_name),
-                                     order_name, band_blocks, bidir, stats)
-            else:
-                band = pf
-                stats.update(band_prefetched=True,
-                             band_tiles=pf["band_tiles"])
-            keys, work = band["keys"], band["work"]
-            work = work.tolist() if bidir else work
-            # the smaller work wins, dim0 on ties
-            pick = 1 if work[1] < work[0] else 0
-            name, active = ("dim0", "morton")[pick], band["acts"][pick]
-            del band, pf
-            stats["order"] = name
-            stats["t_band"] = time.perf_counter() - t0 - stats["t_plan"]
+            stats["t_band"] = band_span.seconds - stats["t_plan"]
         else:
             keys = kernels.nn_keys_init(self.n_pad, self.device)
             name = order_name
             active = (torch.ones((nrb, ncb), dtype=torch.bool,
                                  device=self.device) if bidir
                       else np.ones((nrb, ncb), dtype=bool))
-        t0, t_plan0 = time.perf_counter(), stats["t_plan"]
-        if bidir:
-            active = self._planned(stats, pruning.bidir_closure_device,
-                                   active, rb, cb)
-        tiles = self._planned(stats, self._tiles, active)
-        del active
-        rows = self._nn_rows(name, self._fe_layout(fe, name))
-        cols = None
-        if banded:
-            stats["mode"] = "block-bound"
-            block_tiles = 0 if tiles is None else len(tiles[0])
-            qs = self._nn_tier_qs(tier_qs, block_tiles, bidir)
-            if qs is not None:
-                t_rows, t_cols, t_tiles = self._planned(
-                    stats, self._nn_tiered_plan, rows, keys, qs, bidir,
-                    stats)
-                est = 0 if t_tiles is None else len(t_tiles[0])
-                saved = (block_tiles - est) * float(rb * cb)
-                if tier_qs != "auto" or saved > self.TIERED_MIN_SAVED_PAIRS:
-                    stats["mode"] = "tiered"
-                    rows, cols, tiles = (self._row_copies(t_rows), t_cols,
-                                         t_tiles)
-                del t_rows, t_cols, t_tiles
-        self._nn_sweep(rows, tiles, keys, bidir, stats, "phase2", cols=cols)
-        del rows, cols, tiles
-        d2, ids = kernels.unpack_keys(keys[:, :self.n])
-        absent = ~(d2 < float("inf"))
-        ids = torch.where(absent, 0, ids)
-        d2 = pair_d2(self._put(self.coords), ids)
-        d2 = torch.where(absent, 0.0, d2)
-        ids = ids.cpu().numpy()
-        d2 = d2.cpu().numpy()
-        stats["t_sweep"] = (time.perf_counter() - t0
-                            - (stats["t_plan"] - t_plan0))
+        with span("nn.plan") as plan:
+            if bidir:
+                active = pruning.bidir_closure_device(active, rb, cb)
+            tiles = self._tiles(active)
+            del active
+            rows = self._nn_rows(name, self._fe_layout(fe, name))
+            cols = None
+            if banded:
+                stats["mode"] = "block-bound"
+                block_tiles = 0 if tiles is None else len(tiles[0])
+                qs = self._nn_tier_qs(tier_qs, block_tiles, bidir)
+                if qs is not None:
+                    t_rows, t_cols, t_tiles = self._nn_tiered_plan(
+                        rows, keys, qs, bidir, stats)
+                    est = 0 if t_tiles is None else len(t_tiles[0])
+                    saved = (block_tiles - est) * float(rb * cb)
+                    if (tier_qs != "auto"
+                            or saved > self.TIERED_MIN_SAVED_PAIRS):
+                        stats["mode"] = "tiered"
+                        rows, cols, tiles = (self._row_copies(t_rows),
+                                             t_cols, t_tiles)
+                    del t_rows, t_cols, t_tiles
+        stats["t_plan"] += plan.seconds
+        with span("nn.phase2") as phase2:
+            self._nn_sweep(rows, tiles, keys, bidir, stats, "phase2",
+                           cols=cols)
+            del rows, cols, tiles
+        with span("nn.download") as download:
+            d2, ids = kernels.unpack_keys(keys[:, :self.n])
+            absent = ~(d2 < float("inf"))
+            ids = torch.where(absent, 0, ids)
+            d2 = pair_d2(self._put(self.coords), ids)
+            d2 = torch.where(absent, 0.0, d2)
+            ids = ids.cpu().numpy()
+            d2 = d2.cpu().numpy()
+        stats["t_sweep"] = phase2.seconds + download.seconds
         stats["computed_tiles"] = stats["band_tiles"] + stats["phase2_tiles"]
         self.last_stats["nn"] = stats
         self._log_stats("nn", stats["computed_tiles"],

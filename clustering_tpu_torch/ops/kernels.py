@@ -25,7 +25,11 @@ order (the row-side NN and label-min wrappers reorder theirs with
 :func:`wave_order`).
 
 ``LAUNCHES`` counts the kernel launches of each wrapper (plain calls do
-not count); :func:`reset_launches` sets every count to 0.
+not count); :func:`reset_launches` sets every count to 0. The enclosing
+span (``utils.timer``) counts them too, as ``<kernel>.launches``, and the
+tiles of each tile-list wrapper's calls, plain or not, as
+``<kernel>.tiles`` (the tiles listed: a label-min sweep evaluates only
+the dirty ones, which the fixpoint's span counts as ``swept_tiles``).
 """
 
 import ctypes
@@ -33,6 +37,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import timer
 from .pairwise import sq_dists
 
 IMAX = int(np.iinfo(np.int32).max)
@@ -110,6 +115,13 @@ def _run(fn_name, count_name, *args):
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA launch failed (cudaError {rc})")
     LAUNCHES[count_name] += 1
+    timer.count(count_name + ".launches")
+
+
+def _tally(name, ti):
+    """Count the tiles of a call's list on the enclosing span (host
+    metadata: no sync), whichever version runs."""
+    timer.count(name + ".tiles", int(ti.shape[0]))
 
 
 def _stream(device):
@@ -181,6 +193,7 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
     The self count (``_add_self_count``) is the caller's, added once after
     any merge of partial counts. Returns (R, N_pad) int32 counts in the
     layout's frame positions."""
+    _tally("pops_bidir", ti)
     if coords_t.device.type == "cpu":
         return pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask,
                                 row_block, col_block)
@@ -239,6 +252,7 @@ def pops_sparse(rows_t, cols_t, radii2, n_valid, ti, tj, rmask, row_block,
     or rmask 0 are no-ops; counts are not idempotent, so the list holds
     each tile at most once. Returns (R, R_pad) int32 counts at the row
     positions of ``rows_t``."""
+    _tally("pops_sparse", ti)
     if rows_t.device.type == "cpu":
         return pops_sparse_plain(rows_t, cols_t, radii2, n_valid, ti, tj,
                                  rmask, row_block, col_block)
@@ -324,6 +338,7 @@ def nn_bidir(coords_t, fe, oid, n_valid, ti, tj, keys, row_block,
     need d2 > 0 (finite) and both frames below n_valid; hd needs strictly
     lower fe. ``fe`` (N_pad,) float32 and ``oid`` (N_pad,) int32 are in
     the layout's frame positions. Returns ``keys``."""
+    _tally("nn_bidir", ti)
     if coords_t.device.type == "cpu":
         return nn_bidir_plain(coords_t, fe, oid, n_valid, ti, tj, keys,
                               row_block, col_block)
@@ -379,6 +394,7 @@ def nn_sparse(rows_t, fe_rows, oid_rows, cols_t, fe_cols, oid, n_valid, ti,
     tj < 0 are no-ops and repeats are harmless; the kernel runs the list in
     :func:`wave_order`, and ``keys`` may already hold keys (a first pass's),
     which its rows then start from. Returns ``keys``."""
+    _tally("nn_sparse", ti)
     if rows_t.device.type == "cpu":
         return nn_sparse_plain(rows_t, fe_rows, oid_rows, cols_t, fe_cols,
                                oid, n_valid, ti, tj, keys, row_block,
@@ -437,6 +453,7 @@ def label_min_bidir(coords_t, labels, n_below, max_dist2, ti, tj, dirty,
     d2 < max_dist2 and both positions below n_below proposes each frame's
     label to the other. Returns the swept labels, (N_pad,) int32
     ``min(labels, proposals)``; ``labels`` is left unchanged."""
+    _tally("label_min_bidir", ti)
     if coords_t.device.type == "cpu":
         return label_min_bidir_plain(coords_t, labels, n_below, max_dist2,
                                      ti, tj, dirty, row_block, col_block)
@@ -493,6 +510,7 @@ def label_min_sparse(rows_t, cols_t, labels, n_below, max_dist2, ti, tj,
     proposals, INT32_MAX where a row has none; ``labels`` (N_pad,) is left
     unchanged. Entries with tj < 0 are no-ops and repeats are harmless;
     the kernel runs the list in :func:`wave_order`."""
+    _tally("label_min_sparse", ti)
     if rows_t.device.type == "cpu":
         return label_min_sparse_plain(rows_t, cols_t, labels, n_below,
                                       max_dist2, ti, tj, row_block_offset,

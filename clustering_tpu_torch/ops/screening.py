@@ -34,12 +34,11 @@ other collective. Every device's share is launched before the sweep's
 one readback.
 """
 
-import time
-
 import numpy as np
 import torch
 
 from ..utils.logger import is_verbose, logger
+from ..utils.timer import adopt, count, current, span
 
 from ..parallel.mesh import LocalMesh
 from . import kernels, pruning
@@ -194,19 +193,50 @@ class ScreeningEngine:
         touching the new frames are swept. Returns new device labels.
         ``swept_tiles`` counts the tiles this process swept (on a group's
         mesh, this rank's shares); on a mesh, ``per_device_tiles`` holds
-        the shares as the density engine's do."""
-        t0 = time.perf_counter()
+        the shares as the density engine's do. ``t_plan`` and
+        ``t_fixpoint`` are the seconds of the ``screening.plan`` and
+        ``screening.fixpoint`` spans; the latter counts ``sweeps`` and
+        ``swept_tiles``."""
         bidir = self._bidir_ok()
         plan = "device" if bidir else "host"
-        tiles = self.tile_list(row_lo, n_below, max_dist2, triangular=bidir)
-        if tiles is None:
-            return labels
+        with span("screening.plan") as plan_span:
+            tiles = self.tile_list(row_lo, n_below, max_dist2,
+                                   triangular=bidir)
+            if tiles is None:
+                return labels
+            n_tiles = len(tiles[0])
+            shares = self._spread.shares(tuple(
+                torch.as_tensor(t, device=self.device) for t in tiles))
+        with span("screening.fixpoint") as fixpoint:
+            labels, iters, swept = self._fixpoint(labels, n_below,
+                                                  max_dist2, bidir, shares)
+            count("sweeps", iters)
+            count("swept_tiles", swept)
+            mode = "bidir" if bidir else "symmetric"
+            stats = {"sweeps": iters, "tiles_per_sweep": n_tiles,
+                     "swept_tiles": swept, "mode": mode, "plan": plan,
+                     "t_plan": plan_span.seconds}
+            tag = ""
+            if self.mesh is not None:
+                tag = "mesh "
+                stats.update(mode=mode + "-mesh",
+                             mesh_devices=self.mesh.size,
+                             per_device_tiles=per_device_tiles(
+                                 self.mesh, [len(s[0]) for _, s in shares]))
+            if is_verbose() and not self._quiet:
+                logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
+                       f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
+                       f" {plan} plan, host-driven]")
+        stats["t_fixpoint"] = fixpoint.seconds
+        self.last_stats = stats
+        return labels
+
+    def _fixpoint(self, labels, n_below, max_dist2, bidir, shares):
+        """The sweeps of :meth:`run_device` over each device's tile
+        ``shares`` until the union changes nothing: (the labels, the
+        sweeps, the tiles swept)."""
         rb, cb = self.row_block, self.col_block
         union_size = self.union_size(n_below)
-        n_tiles = len(tiles[0])
-        shares = self._spread.shares(tuple(
-            torch.as_tensor(t, device=self.device) for t in tiles))
-        t_plan = time.perf_counter() - t0
         dirty_col = torch.ones(self.n_pad // cb, dtype=torch.bool,
                                device=self.device)
         dirty_row = (torch.ones(self.n_pad // rb, dtype=torch.bool,
@@ -242,24 +272,7 @@ class ScreeningEngine:
             iters += 1
             if not changed:
                 break
-        swept = int(swept)
-        mode = "bidir" if bidir else "symmetric"
-        stats = {"sweeps": iters, "tiles_per_sweep": n_tiles,
-                 "swept_tiles": swept, "mode": mode, "plan": plan,
-                 "t_plan": t_plan}
-        tag = ""
-        if self.mesh is not None:
-            tag = "mesh "
-            stats.update(mode=mode + "-mesh", mesh_devices=self.mesh.size,
-                         per_device_tiles=per_device_tiles(
-                             self.mesh, [len(s[0]) for _, s in shares]))
-        if is_verbose() and not self._quiet:
-            logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
-                   f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
-                   f" {plan} plan, host-driven]")
-        stats["t_fixpoint"] = time.perf_counter() - t0 - t_plan
-        self.last_stats = stats
-        return labels
+        return labels, iters, int(swept)
 
     def run(self, initial_labels, n_below, max_dist2, row_lo=0):
         """Host wrapper of :meth:`run_device`: (N,) labels in and out."""
@@ -280,12 +293,24 @@ class ThresholdSeriesScreener:
     by their minimal FE-sorted frame rank, as in the reference. With a
     ``mesh`` (either kind), the series runs on every device's share of
     each step's list, from the main thread (``step_submit``'s pool only
-    downloads)."""
+    downloads).
+
+    The build runs in a ``screener.build`` span (``build_seconds``), with
+    children ``screener.morton``, ``screener.sort`` (the series order),
+    ``screener.fe_sort`` (the naming order), ``screener.gather`` and
+    ``screener.upload``."""
 
     def __init__(self, coords, free_energy, thresholds,
                  row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
                  backend="auto", mesh=None, hd_neighbors=None,
                  device=None):
+        with span("screener.build") as build:
+            self._build(coords, free_energy, thresholds, row_block,
+                        col_block, backend, mesh, hd_neighbors, device)
+        self.build_seconds = build.seconds
+
+    def _build(self, coords, free_energy, thresholds, row_block, col_block,
+               backend, mesh, hd_neighbors, device):
         coords = np.asarray(coords, dtype=np.float32)
         fe = np.asarray(free_energy, dtype=np.float32)
         self.thresholds = [np.float32(t) for t in thresholds]
@@ -296,18 +321,26 @@ class ThresholdSeriesScreener:
         n = len(fe)
         # band k = first series threshold at or above this frame's fe
         band = np.searchsorted(self.thresholds, fe, side="left")
-        morton = np.argsort(pruning.morton_order(coords), kind="stable")
-        self.order = np.lexsort((morton, band))
+        with span("screener.morton"):
+            morton_order = pruning.morton_order(coords)
+        with span("screener.sort"):
+            morton = np.argsort(morton_order, kind="stable")
+            self.order = np.lexsort((morton, band))
+            self._series_rank = np.empty(n, dtype=np.int64)
+            self._series_rank[self.order] = np.arange(n)
         self.n_below_per_band = np.cumsum(
             np.bincount(band, minlength=len(self.thresholds) + 1)
         )[:len(self.thresholds)]
-        fe_order = np.argsort(fe, kind="stable")
-        self._series_rank = np.empty(n, dtype=np.int64)
-        self._series_rank[self.order] = np.arange(n)
-        # series positions in FE-ascending frame order (for naming)
-        self._fe_asc_pos = self._series_rank[fe_order]
-        self.engine = ScreeningEngine(coords[self.order], row_block,
-                                      col_block, backend, mesh, device)
+        with span("screener.fe_sort"):
+            fe_order = np.argsort(fe, kind="stable")
+            # series positions in FE-ascending frame order (for naming)
+            self._fe_asc_pos = self._series_rank[fe_order]
+        with span("screener.gather"):
+            coords_sorted = coords[self.order]
+        with span("screener.upload"):
+            self.engine = ScreeningEngine(coords_sorted, row_block,
+                                          col_block, backend, mesh, device)
+        del coords_sorted  # the engine holds its padded copy
         self.n = n
         self._prev_nb = 0
         self._labels = None
@@ -321,11 +354,14 @@ class ThresholdSeriesScreener:
         """Attach the NN stage's nearest-lower-fe edges (hd_idx, hd_d2)
         per original frame: below the linking distance each is a genuine
         screening edge whose endpoint is admitted first, so new frames
-        seed their labels with it (same components, fewer sweeps)."""
-        hd_j = np.asarray(hd_neighbors[0], dtype=np.int64)
-        hd_d = np.asarray(hd_neighbors[1], dtype=np.float32)
-        self._hd_pos = self._series_rank[hd_j[self.order]].astype(np.int32)
-        self._hd_d = hd_d[self.order]
+        seed their labels with it (same components, fewer sweeps). A
+        ``screener.hd_neighbors`` span."""
+        with span("screener.hd_neighbors"):
+            hd_j = np.asarray(hd_neighbors[0], dtype=np.int64)
+            hd_d = np.asarray(hd_neighbors[1], dtype=np.float32)
+            self._hd_pos = self._series_rank[hd_j[self.order]].astype(
+                np.int32)
+            self._hd_d = hd_d[self.order]
 
     def precompile(self, max_dist2, compile_only=False):
         """Pay the screening steps' first-use costs on the card before the
@@ -438,7 +474,8 @@ class ThresholdSeriesScreener:
                                         row_lo=prev_last)
         self._labels = labels
         self._prev_nb = nb
-        out = self._postlude(labels[:nb].cpu().numpy(), nb)
+        with span("screening.post"):
+            out = self._postlude(labels[:nb].cpu().numpy(), nb)
         self._last_out = out
         return out
 
@@ -464,7 +501,8 @@ class ThresholdSeriesScreener:
 
     def step_submit(self, k, max_dist2, pool):
         """Series-order step whose host postlude (label download and
-        naming) runs on ``pool``; returns the Future of what ``step``
+        naming) runs on ``pool``, in a ``screening.post`` span whose parent
+        is the span open here; returns the Future of what ``step``
         returns. The whole series must be driven in ascending order
         through this method from a fresh (or reset) screener."""
         import concurrent.futures
@@ -495,7 +533,12 @@ class ThresholdSeriesScreener:
         # the prefix snapshot is taken in stream order on this thread;
         # the worker only downloads it
         prefix = labels[:nb].clone()
-        fut = pool.submit(lambda: self._postlude(prefix.cpu().numpy(), nb))
+        parent = current()
+
+        def post():
+            with adopt(parent), span("screening.post"):
+                return self._postlude(prefix.cpu().numpy(), nb)
+        fut = pool.submit(post)
         self._last_future = fut
         return fut
 

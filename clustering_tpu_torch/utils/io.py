@@ -6,6 +6,10 @@ headers and ``#@ key = value`` provenance metadata lines; the on-disk byte
 layout of data lines matches the reference so pipelines are drop-in
 compatible (reference: tools.cpp:229-277 for metadata, tools.hxx:207-272 for
 column IO).
+
+The coordinates' read is an ``io.read_coords`` span and each text file's
+write an ``io.write`` span (``utils.timer``), with counters ``bytes``
+and ``rows`` and, for a write, the file's path as ``args["file"]``.
 """
 
 import os
@@ -14,6 +18,8 @@ import time
 import warnings
 
 import numpy as np
+
+from .timer import span
 
 # metadata keys carried between pipeline stages, all modes register these
 # up-front with value 0.0 == "unset" (reference: clustering.cpp:484-493)
@@ -221,7 +227,8 @@ def write_single_column(path, data, header_comment="", scientific=False):
     from . import textio_native
     arr = np.asarray(data)
     native = textio_native.available() and len(arr)
-    with open(path, "wb") as fh:
+    with span("io.write", args={"file": path}) as write, \
+            open(path, "wb") as fh:
         fh.write(header_comment.encode())
         if scientific:
             body = (textio_native.format_e(arr) if native else
@@ -236,6 +243,7 @@ def write_single_column(path, data, header_comment="", scientific=False):
             body = ("\n".join(_fmt_any(v) for v in data)
                     + "\n" if len(arr) else "").encode()
         fh.write(body)
+        write.counters.update(bytes=fh.tell(), rows=len(arr))
 
 
 def _fmt_any(v):
@@ -287,16 +295,19 @@ def read_coords(path, usecols=None, dtype=np.float32) -> np.ndarray:
     Reference: tools.hxx:39-111 (two-pass aligned reader); here a single
     numpy pass suffices. Returns a C-contiguous float32 array.
     """
-    if path.endswith(".npy"):
-        arr = np.load(path).astype(dtype)
-        arr = arr.reshape(len(arr), -1)
-    else:
-        arr = _read_table_fast(path)
-        if arr is None:
-            arr = np.loadtxt(path, dtype=dtype, ndmin=2, comments="#")
-    if usecols is not None:
-        arr = arr[:, list(usecols)]
-    return np.ascontiguousarray(arr, dtype=dtype)
+    with span("io.read_coords", args={"file": path}) as read:
+        if path.endswith(".npy"):
+            arr = np.load(path).astype(dtype)
+            arr = arr.reshape(len(arr), -1)
+        else:
+            arr = _read_table_fast(path)
+            if arr is None:
+                arr = np.loadtxt(path, dtype=dtype, ndmin=2, comments="#")
+        if usecols is not None:
+            arr = arr[:, list(usecols)]
+        arr = np.ascontiguousarray(arr, dtype=dtype)
+        read.counters.update(bytes=os.path.getsize(path), rows=len(arr))
+    return arr
 
 
 def _read_table_fast(path):
@@ -347,7 +358,8 @@ def write_neighborhood(path, nh_idx, nh_dist, nhhd_idx, nhhd_dist,
         "#   dsqr(i) = squared euclidean distance to i\n#\n"
         "# id(nn)  dsqr(nn) id(nn_hd) dsqr(nn_hd)\n")
     from . import textio_native
-    with open(path, "wb") as fh:
+    with span("io.write", args={"file": path}) as write, \
+            open(path, "wb") as fh:
         fh.write(header_comment.encode())
         if textio_native.available():
             fh.write(textio_native.format_nn(nh_idx, nh_dist,
@@ -356,6 +368,7 @@ def write_neighborhood(path, nh_idx, nh_dist, nhhd_idx, nhhd_dist,
             for a, b, c, d in zip(nh_idx, nh_dist, nhhd_idx, nhhd_dist):
                 fh.write(f"{int(a)} {fmt_float(b)} {int(c)} "
                          f"{fmt_float(d)}\n".encode())
+        write.counters.update(bytes=fh.tell(), rows=len(nh_idx))
 
 
 def read_neighborhood(path):
