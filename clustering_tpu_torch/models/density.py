@@ -238,12 +238,14 @@ def _log_substages(engine, stage_key, extra=None):
         logger(f"      [{stage_key} substages: {parts}]")
 
 
-def _build_screener(coords, free_energy, thresholds, device, parent):
+def _build_screener(coords, free_energy, thresholds, device, morton_order,
+                    parent):
     """The series screener without lower-fe edges, built (on a worker
     thread) under the span ``parent``."""
     with adopt(parent):
         return ThresholdSeriesScreener(coords, free_energy, thresholds,
-                                       device=device)
+                                       device=device,
+                                       morton_order=morton_order)
 
 
 def _precompile_on(engine):
@@ -331,7 +333,8 @@ def main(args, header_comment, comments_map, device):
                                    deferred_writes, warm)
         if args.output:
             _cluster_stage(args, coords, free_energy, nh, comments_map,
-                           header_comment, device, mesh, series_fut, warm)
+                           header_comment, device, mesh, series_fut, warm,
+                           engine.layout_order("morton"))
         with span("cli.write_wait"):
             for fut in deferred_writes:
                 fut.result()
@@ -486,9 +489,11 @@ def _start_screener(args, engine, free_energy, write_pool, warm, stage):
             list(args.threshold_screening), free_energy)[3]
     except ValueError:
         return None  # the screening stage reports it
+    # the engine's Morton order, read here: the worker must not build
+    # the engine's layouts
     series_fut = write_pool.submit(_build_screener, engine.coords,
                                    free_energy, thresholds, engine.device,
-                                   stage)
+                                   engine.layout_order("morton"), stage)
     if os.environ.get("CLUSTERING_TPU_EARLY_SCREEN_WARM") != "0":
         # the screening warm during NN, at the linking distance estimated
         # from the prefetched band pass
@@ -507,7 +512,7 @@ def _start_screener(args, engine, free_energy, write_pool, warm, stage):
 
 def _cluster_stage(args, coords, free_energy, nh, comments_map,
                    header_comment, device, mesh, series_fut=None,
-                   warm=None):
+                   warm=None, morton_order=None):
     if args.radii:
         _die("error: output needs to depend on single radius\n"
              "       but several radii (-R) are set.")
@@ -546,7 +551,8 @@ def _cluster_stage(args, coords, free_energy, nh, comments_map,
             series = ThresholdSeriesScreener(coords, free_energy, thresholds,
                                              device=device,
                                              hd_neighbors=(nh[2], nh[3]),
-                                             mesh=mesh)
+                                             mesh=mesh,
+                                             morton_order=morton_order)
         else:
             series = series_fut.result()
             series.set_hd_neighbors((nh[2], nh[3]))

@@ -283,6 +283,12 @@ class DensityEngine:
                 self._orders[name] = self._sorted(name)
         return self._orders[name]
 
+    def layout_order(self, name):
+        """The frame order of layout ``name`` if it is built, else None;
+        builds nothing (the layouts are built on the stages' thread)."""
+        built = self._orders.get(name)
+        return None if built is None else built[0]
+
     def _sorted(self, name):
         """(order, padded) of layout ``name``, built."""
         if name == "orig":

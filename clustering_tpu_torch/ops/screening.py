@@ -295,22 +295,29 @@ class ThresholdSeriesScreener:
     each step's list, from the main thread (``step_submit``'s pool only
     downloads).
 
-    The build runs in a ``screener.build`` span (``build_seconds``), with
-    children ``screener.morton``, ``screener.sort`` (the series order),
-    ``screener.fe_sort`` (the naming order), ``screener.gather`` and
-    ``screener.upload``."""
+    ``morton_order`` is the (n,) int64 Morton order of ``coords``
+    (``pruning.morton_order``) when the caller already holds it, as the
+    density engine does (``DensityEngine.layout_order("morton")``); else
+    the build computes it.
+
+    The build runs in a ``screener.build`` span (``build_seconds``)
+    whose counter ``morton_reused`` is 1 when the order was handed in,
+    with children ``screener.morton`` (only when it was not),
+    ``screener.sort`` (the series order), ``screener.fe_sort`` (the
+    naming order), ``screener.gather`` and ``screener.upload``."""
 
     def __init__(self, coords, free_energy, thresholds,
                  row_block=DEFAULT_ROW_BLOCK, col_block=DEFAULT_COL_BLOCK,
                  backend="auto", mesh=None, hd_neighbors=None,
-                 device=None):
+                 device=None, morton_order=None):
         with span("screener.build") as build:
             self._build(coords, free_energy, thresholds, row_block,
-                        col_block, backend, mesh, hd_neighbors, device)
+                        col_block, backend, mesh, hd_neighbors, device,
+                        morton_order)
         self.build_seconds = build.seconds
 
     def _build(self, coords, free_energy, thresholds, row_block, col_block,
-               backend, mesh, hd_neighbors, device):
+               backend, mesh, hd_neighbors, device, morton_order):
         coords = np.asarray(coords, dtype=np.float32)
         fe = np.asarray(free_energy, dtype=np.float32)
         self.thresholds = [np.float32(t) for t in thresholds]
@@ -319,13 +326,23 @@ class ThresholdSeriesScreener:
             raise ValueError("thresholds must be strictly ascending, got "
                              f"{[float(t) for t in self.thresholds]}")
         n = len(fe)
-        # band k = first series threshold at or above this frame's fe
-        band = np.searchsorted(self.thresholds, fe, side="left")
-        with span("screener.morton"):
-            morton_order = pruning.morton_order(coords)
+        count("morton_reused", int(morton_order is not None))
+        if morton_order is None:
+            with span("screener.morton"):
+                morton_order = pruning.morton_order(coords)
+        elif len(morton_order) != n:
+            raise ValueError(f"morton_order has {len(morton_order)} frames,"
+                             f" the free energies {n}")
+        # band k = first series threshold at or above this frame's fe, in
+        # the narrowest type that holds len(thresholds), for which numpy's
+        # stable sort is a radix sort
+        band = np.searchsorted(self.thresholds, fe, side="left").astype(
+            np.min_scalar_type(len(self.thresholds)))
         with span("screener.sort"):
-            morton = np.argsort(morton_order, kind="stable")
-            self.order = np.lexsort((morton, band))
+            # (band, Morton rank) order: a stable partition of the Morton
+            # order by band keeps Morton order inside each band
+            self.order = morton_order[np.argsort(band[morton_order],
+                                                 kind="stable")]
             self._series_rank = np.empty(n, dtype=np.int64)
             self._series_rank[self.order] = np.arange(n)
         self.n_below_per_band = np.cumsum(

@@ -140,7 +140,6 @@ TREE = [
     ("nn.phase2", "nearest neighbors", MAIN),
     ("nn.download", "nearest neighbors", MAIN),
     ("screener.build", "nearest neighbors", "write_"),
-    ("screener.morton", "screener.build", "write_"),
     ("screener.sort", "screener.build", "write_"),
     ("screener.fe_sort", "screener.build", "write_"),
     ("screener.gather", "screener.build", "write_"),
@@ -167,6 +166,16 @@ def test_cli_span_parent_and_thread(all_spans, cli_spans, name, parent,
     for s in found:
         assert _parent_name(spans, s) == parent, s
         assert s["thread"].startswith(thread), s
+
+
+def test_cli_screener_takes_the_engines_morton_order(all_spans):
+    """The CLI's screener is built from the Morton order that the density
+    engine built for populations: no ``screener.morton`` span, and the
+    build's ``morton_reused`` counter reads 1."""
+    assert not _named(all_spans, "screener.morton")
+    builds = _named(all_spans, "screener.build")
+    assert len(builds) == 1
+    assert builds[0]["counters"]["morton_reused"] == 1
 
 
 def test_warm_threads_hold_only_the_warms(all_spans):
@@ -334,7 +343,8 @@ def test_last_stats_substages_equal_the_spans(prefetch):
 
 def test_screener_build_spans_on_the_calling_thread():
     """Built through the API, the screener's spans run on the caller's
-    thread under the same names, ``build_seconds`` the build's."""
+    thread under the same names, ``build_seconds`` the build's; without
+    an order handed in it computes the Morton order itself."""
     coords = _golden_coords()
     fe = np.linspace(0.0, 2.0, len(coords)).astype(np.float32)
     series, spans = _spans_since(lambda: tscreening.ThresholdSeriesScreener(
@@ -345,6 +355,7 @@ def test_screener_build_spans_on_the_calling_thread():
     kids = {s["name"] for s in spans if s["parent"] == build[0]["id"]}
     assert kids == {"screener.morton", "screener.sort", "screener.fe_sort",
                     "screener.gather", "screener.upload"}
+    assert build[0]["counters"]["morton_reused"] == 0
 
 
 def test_device_warm_span_on_its_thread():
