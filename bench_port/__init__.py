@@ -9,7 +9,8 @@ sits in a file of its own under this folder, found by the name that
 ``BENCHMARK.json`` gives it (``configs/``, ``traffic/``, ``entries/``,
 ``metrics/``). The yardstick is here too: the input generator
 (``fel.py``), the reduction of traces and logs (``trace.py``,
-``stages.py``), the plain reference (``reference/``) and the comparison
-that decides ``correct`` (``check.py``). Nothing here imports ``jax`` or
+``stages.py``), the plain reference (``reference/``) and the comparisons
+that decide ``correct`` (``checks/``, one a traffic mix names, and what
+they share, ``check.py``). Nothing here imports ``jax`` or
 the JAX package ``clustering_tpu``.
 """

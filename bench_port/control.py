@@ -2,7 +2,9 @@
 from: ``python -m bench_port.control --workload <cell> --seeds 3 4 5``.
 
 For each seed it builds the cell's input, runs one job of the cell's entry
-(a window of one job), and judges it as a run does (``program``); then it
+(a window of one job), and judges it as a run does by the ``density``
+comparison (``program``; a cell whose traffic names another comparison
+has no control here); then it
 puts the reference, computed with coordinates and arithmetic in bfloat16,
 the precision below the configuration's float32, in the program's place
 at the sampled frames (``control``: its populations, free energies and
@@ -19,7 +21,8 @@ import sys
 
 import numpy as np
 
-from bench_port import check, run as runs, spec as specs
+from bench_port import run as runs, spec as specs
+from bench_port.checks import density
 
 
 def with_answers(out, rows, answers):
@@ -30,7 +33,7 @@ def with_answers(out, rows, answers):
     pops[rows] = answers["pop"]
     out["pops"] = pops
     fe = np.asarray(out["fe"], dtype=np.float64).copy()
-    fe[rows] = check.free_energy32(pops)[rows]
+    fe[rows] = density.free_energy32(pops)[rows]
     out["fe"] = fe
     for kind in ("nh", "hd"):
         ids = np.asarray(out[kind + "_id"], dtype=np.int64).copy()
@@ -53,12 +56,12 @@ def readings(cell, seed, device="cuda"):
         run.entry.release(run)
         if rec["rc"] != 0:
             raise RuntimeError("the job failed:\n" + rec.get("tail", ""))
-        out = run.entry.outputs(run, rec)
-        ref = runs.Reference(run, out, control=True)
+        out = density.outputs(run, rec)
+        ref = density.Reference(run, out, control=True)
         thresholds = run.entry.thresholds(run)
         rank = out.get("rank")
-        return {"program": check.judge(out, ref, thresholds, rank),
-                "control": check.judge(
+        return {"program": density.compare(out, ref, thresholds, rank),
+                "control": density.compare(
                     with_answers(out, ref.rows, ref.answers["control"]),
                     ref, thresholds, rank),
                 "job_s": rec["wall"]}

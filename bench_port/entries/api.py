@@ -136,10 +136,6 @@ def release(run):
         torch.cuda.empty_cache()
 
 
-def outputs(run, rec):
-    return rec["out"]
-
-
 def judged(run, jobs):
     """The first and last job and ``JUDGED - 2`` others drawn from the
     seed (each had an input of its own; judging all of a window's jobs
@@ -154,7 +150,3 @@ def judged(run, jobs):
 
 def agreement(run, jobs):
     return {}
-
-
-def pops_sum(run, rec):
-    return int(rec["out"]["pops"].astype(np.int64).sum())

@@ -1,17 +1,20 @@
 """The ``cli`` entry: one job is one cold process of the density CLI.
 
 Set-up writes the frames as ``%.6f`` text and builds what the CLI builds
-at first use. A job is
-``python -m bench_port.cli_job density -f coords.dat -r R -p pop -d fe
--b nn -o clust -T FROM STEP TO -v`` in a fresh directory of its own under
-``TMPDIR``, with the CLI's defaults and ``CLUSTERING_TPU_PROFILE_SUBSTAGES``
-set. It is timed on the harness's clock from spawn to exit, since users
-run the CLI as a cold process, and its peak RSS is its own rusage
-(``os.wait4``). Every job reads the same file, so every job's output
-files must be the first job's byte for byte below their headers; each
-later job's files are fingerprinted and deleted as it ends, and only the
-first job's are parsed and judged. The traced job runs under
-``CLUSTERING_TPU_PROFILE``, the CLI's whole-run trace.
+at first use. A job is ``python -m bench_port.cli_job density -f
+coords.dat <args>`` in a fresh directory of its own under ``TMPDIR``,
+with the CLI's defaults and ``CLUSTERING_TPU_PROFILE_SUBSTAGES`` set. The
+traffic's ``args`` give the arguments after the input and its ``files``
+the files that the job writes; without them a job is ``-r R -p pop -d fe
+-b nn -o clust -T FROM STEP TO -v`` (R the configuration's ``radius``,
+the three words the traffic's ``thresholds``) and writes ``pop``, ``fe``,
+``nn`` and one ``clust.<t>`` a threshold. A job is timed on the
+harness's clock from spawn to exit, since users run the CLI as a cold
+process, and its peak RSS is its own rusage (``os.wait4``). Every job
+reads the same file, so every job's files must be the first job's byte
+for byte below their headers; each later job's files are fingerprinted
+and deleted as it ends, and only the first job's are judged. The traced
+job runs under ``CLUSTERING_TPU_PROFILE``, the CLI's whole-run trace.
 """
 
 import json
@@ -20,7 +23,9 @@ import subprocess
 import sys
 import time
 
-from .. import check, fel, stages, textfiles
+import numpy as np
+
+from .. import fel, stages, textfiles
 from .. import trace as traces
 
 INPUT = "coords.dat"
@@ -39,20 +44,47 @@ def _env(run, extra=None):
     return env
 
 
-def _files(run):
-    return ["pop", "fe", "nn"] + [f"clust.{float(t):.2f}"
-                                  for t in thresholds(run)]
-
-
-def thresholds(run):
-    return check.threshold_series(*map(float, run.traffic["thresholds"]))
+def job_args(run):
+    """The arguments after ``density -f <input>``."""
+    if "args" in run.traffic:
+        return [str(a) for a in run.traffic["args"]]
+    return (["-r", str(run.config["radius"]), "-p", "pop", "-d", "fe", "-b",
+             "nn", "-o", "clust", "-T"]
+            + [str(t) for t in run.traffic["thresholds"]] + ["-v"])
 
 
 def argv(run):
-    return (["density", "-f", os.path.join(run.dir, INPUT), "-r",
-             str(run.config["radius"]), "-p", "pop", "-d", "fe", "-b", "nn",
-             "-o", "clust", "-T"] + [str(t) for t in run.traffic["thresholds"]]
-            + ["-v"])
+    return ["density", "-f", os.path.join(run.dir, INPUT)] + job_args(run)
+
+
+def threshold_series(t_from, t_step, t_to):
+    """The thresholds of ``-T FROM STEP TO``: FROM, FROM + STEP, ... while
+    below TO + STEP - STEP / 10, added up in float32 (moldyn/Clustering's
+    loop)."""
+    f32 = np.float32
+    t, step, to = f32(t_from), f32(t_step), f32(t_to)
+    low = f32(to - step / f32(10.0) + step)
+    high = f32(to + step / f32(10.0) + step)
+    out = []
+    while t < low and not high < t:
+        out.append(t)
+        t = f32(t + step)
+    return out
+
+
+def thresholds(run):
+    """The thresholds of the job's ``-T``."""
+    args = job_args(run)
+    at = args.index("-T")
+    return threshold_series(*map(float, args[at + 1:at + 4]))
+
+
+def files(run):
+    """The files that a job writes, which ``finish`` fingerprints."""
+    if "files" in run.traffic:
+        return list(run.traffic["files"])
+    return ["pop", "fe", "nn"] + [f"clust.{float(t):.2f}"
+                                  for t in thresholds(run)]
 
 
 def prepare(run):
@@ -109,7 +141,7 @@ def job(run, k, extra_env=None):
 def finish(run, rec, first):
     """Fingerprint the job's files; delete a later job's files."""
     rec["digests"] = {}
-    for name in _files(run):
+    for name in files(run):
         path = os.path.join(rec["dir"], name)
         if os.path.exists(path):
             rec["digests"][name] = textfiles.body_digest(path)
@@ -136,32 +168,6 @@ def release(run):
     """Nothing: the jobs' processes have ended."""
 
 
-def _device(run):
-    import torch
-    return "cuda" if run.device == "cuda" and torch.cuda.is_available() \
-        else "cpu"
-
-
-def outputs(run, rec):
-    """The job's files as arrays (parsed once)."""
-    if "out" not in rec:
-        dev = _device(run)
-
-        def col(name, n_cols=1):
-            return textfiles.read_table(os.path.join(rec["dir"], name),
-                                        n_cols, dev)
-        nn = col("nn", 4)
-        rec["out"] = {
-            "pops": col("pop")[:, 0].astype("int64"),
-            "fe": col("fe")[:, 0],
-            "nh_id": nn[:, 0].astype("int64"), "nh_d2": nn[:, 1],
-            "hd_id": nn[:, 2].astype("int64"), "hd_d2": nn[:, 3],
-            "clust": [col(name)[:, 0].astype("int64")
-                      for name in _files(run)[3:]],
-        }
-    return rec["out"]
-
-
 def judged(run, jobs):
     """Only the first job's files are parsed: the others must equal
     them."""
@@ -172,9 +178,4 @@ def agreement(run, jobs):
     """``jobs_differ``: jobs whose files differ from the first job's."""
     first = jobs[0]["digests"]
     return {"jobs_differ": sum(rec["digests"] != first or len(first)
-                               != len(_files(run)) for rec in jobs[1:])}
-
-
-def pops_sum(run, rec):
-    out = rec.get("out")
-    return None if out is None else int(out["pops"].sum())
+                               != len(files(run)) for rec in jobs[1:])}

@@ -11,10 +11,10 @@
    the window. With ``--trace 1`` one more job runs under the profiler
    after the window, for the metrics that read a trace.
 3. The check, once the window has closed and the jobs' memory has been
-   read: the plain reference (a sample of frames drawn from the seed, and
-   the clustering of every threshold over all frames) and the comparison
-   of ``check.py``, whose numbers and limits are the last lines on
-   standard error and the last key of the result line.
+   read: the comparison that the traffic names (``checks/``; the
+   ``density`` one, with its plain reference, where it names none), whose
+   numbers and limits are the last lines on standard error and the last
+   key of the result line.
 
 The result line is the last line on standard output. The run fails with
 no result line where no CUDA device is visible, or fewer than the cell
@@ -32,6 +32,7 @@ import shutil  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
+import traceback  # noqa: E402
 from types import SimpleNamespace  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -75,13 +76,6 @@ def device_info(chips):
     return info
 
 
-def sample_rows(seed, n, size, extra=()):
-    """``size`` distinct frames drawn from the seed, plus ``extra``."""
-    rng = np.random.default_rng(fel.seed_words(seed, 1))
-    rows = rng.choice(n, size=min(size, n), replace=False)
-    return np.unique(np.concatenate([rows, np.asarray(extra, np.int64)]))
-
-
 def make_run(cell, seed, seconds, device="cuda"):
     t0 = time.perf_counter()
     cfg = specs.config(cell["config"])
@@ -111,75 +105,31 @@ def window(run):
     return jobs
 
 
-class Reference:
-    """The plain reference of a run, worked out from its frames alone.
-
-    ``answers`` are the sweep's for ``rows``, a sample of frames drawn
-    from the seed with the frame of the largest population of the first
-    job's outputs ``out0``; those outputs' populations decide which
-    neighbours count as of higher density (``pops_of`` holds the ones the
-    comparison relies on to the reference's own). ``pair_d2`` gives the
-    d2 of frame pairs, ``pops_of`` the populations of frames, and
-    ``clusterings`` the components of each threshold's frames, each
-    worked out once."""
-
-    def __init__(self, run, out0, control=False):
-        dev = "cuda" if run.device == "cuda" and torch.cuda.is_available() \
-            else "cpu"
-        self.mod = specs.reference(run.config["reference"])
-        self.merge = specs.reference("merge")
-        self.radius = run.config["radius"]
-        self.coords = torch.as_tensor(run.coords, device=dev)
-        self.rows = sample_rows(run.seed, len(run.coords),
-                                run.config["sample_frames"],
-                                extra=[int(np.argmax(out0["pops"]))])
-        self.answers = self.mod.sweep(
-            self.coords, torch.as_tensor(self.rows, device=dev),
-            self.radius,
-            torch.as_tensor(np.asarray(out0["pops"], np.int64)),
-            control=control)
-        self._pops = dict(zip(self.rows.tolist(),
-                              self.answers["pop"].tolist()))
-        self._components = {}
-
-    def _ids(self, ids):
-        return torch.as_tensor(np.asarray(ids, np.int64),
-                               device=self.coords.device)
-
-    def pair_d2(self, i, j):
-        return self.mod.pair_sq_dists(self.coords, self._ids(i),
-                                      self._ids(j)).cpu().numpy()
-
-    def pops_of(self, frames):
-        frames = np.asarray(frames, np.int64)
-        new = np.asarray(sorted({int(f) for f in frames} - set(self._pops)),
-                         np.int64)
-        if len(new):
-            got = self.mod.populations(self.coords, self._ids(new),
-                                       self.radius)
-            self._pops.update(zip(new.tolist(), got.tolist()))
-        return np.asarray([self._pops[int(f)] for f in frames], np.int64)
-
-    def clusterings(self, levels, n_levels, link2):
-        key = (levels.tobytes(), n_levels, link2)
-        if key not in self._components:
-            self._components = {key: self.merge.clusterings(
-                self.coords, self._ids(levels), n_levels, link2)}
-        return self._components[key]
-
-
 def judge(run, jobs):
-    """(numbers, limits) of the comparison with the reference."""
-    ref = Reference(run, run.entry.outputs(run, jobs[0]))
-    thresholds = run.entry.thresholds(run)
-    readings = [check.judge(out, ref, thresholds, rank=out.get("rank"))
-                for out in (run.entry.outputs(run, rec)
-                            for rec in run.entry.judged(run, jobs))]
-    numbers = check.worst(readings)
-    numbers.update(run.entry.agreement(run, jobs))
-    numbers["jobs_failed"] = sum(rec["rc"] != 0 for rec in jobs)
-    limits = dict(run.traffic["limits"], jobs_failed=0)
-    return numbers, limits
+    """(numbers, limits): ``jobs_failed``, and where every job ran to its
+    end, the numbers of the cell's comparison, ``checks/<check>.py`` by
+    the traffic's ``check`` key (``density`` where it has none). A
+    comparison that raises reads ``outputs_unreadable``."""
+    numbers = {"jobs_failed": sum(rec["rc"] != 0 for rec in jobs)}
+    limits = {"jobs_failed": 0}
+    if numbers["jobs_failed"]:
+        return numbers, limits
+    comparison = specs.check(run.traffic.get("check", "density"))
+    try:
+        got, lims = comparison.judge(run, jobs)
+    except Exception as exc:  # any fault of a comparison: not correct
+        traceback.print_exc()
+        sys.stderr.write(f"bench_port: unreadable outputs: {exc!r}\n")
+        return (dict(numbers, outputs_unreadable=1),
+                dict(limits, outputs_unreadable=0))
+    return dict(got, **numbers), dict(lims, **limits)
+
+
+def pops_sum(rec):
+    """The sum of the populations that the comparison left in the job's
+    record, or None."""
+    pops = rec.get("out", {}).get("pops")
+    return None if pops is None else int(np.asarray(pops, np.int64).sum())
 
 
 def read_metrics(spec, run, kind, ctx):
@@ -212,20 +162,12 @@ def run_cell(spec, cell, seed, seconds, trace, device="cuda",
                                         for rec in done)
         run.entry.release(run)
         t_check = time.perf_counter()
-        numbers = {"jobs_failed": sum(rec["rc"] != 0 for rec in done)}
-        limits = {"jobs_failed": 0}
-        if not numbers["jobs_failed"]:
-            try:
-                numbers, limits = judge(run, done)
-            except (OSError, ValueError) as exc:
-                sys.stderr.write(f"bench_port: unreadable outputs: {exc}\n")
-                numbers["outputs_unreadable"] = 1
-                limits["outputs_unreadable"] = 0
+        numbers, limits = judge(run, done)
         ok, rows = check.verdict(numbers, limits)
         ctx = SimpleNamespace(
             jobs=jobs, trace=summary,
             n=len(run.coords), dim=run.coords.shape[1], setup_s=setup_s,
-            pops_sum=run.entry.pops_sum(run, jobs[0]))
+            pops_sum=pops_sum(jobs[0]))
         kind = "per_layer" if trace else "end_to_end"
         result = {"correct": ok, "attempted": len(done),
                   "failed": sum(rec["rc"] != 0 for rec in done),

@@ -1,13 +1,21 @@
 """Finding a cell's parts by the names that ``BENCHMARK.json`` gives them.
 
 A cell names a configuration (``configs/<config>.json``) and a traffic mix
-(``traffic/<traffic>.json``); the traffic names the entry that its jobs
-go through (``entries/<entry>.py``); the configuration names its plain
-reference (``reference/<reference>.py``); each metric is read by
+(``traffic/<traffic>.json``). The traffic names the entry that its jobs
+go through (``entries/<entry>.py``) and, by its ``check`` key, the
+comparison that decides ``correct`` (``checks/<check>.py``; ``density``
+where it has none); for the CLI entry it may give the job's arguments
+after ``density -f <input>`` (``args``) and the files that the job
+writes (``files``). The configuration names its plain reference
+(``reference/<reference>.py``); each metric is read by
 ``metrics/<metric name>.py``, a module with ``read(ctx)`` that returns the
 metric's value or None where it finds nothing to read. A later cell,
-configuration, traffic mix, entry or metric is a new file and a new entry
-in ``BENCHMARK.json``; no file here changes.
+configuration, traffic mix, entry, comparison or metric is a new file and
+a new entry in ``BENCHMARK.json``, also where its jobs write other files
+than the cells before it (a scan of several radii with ``-R``); no file
+here changes. One thing a cell cannot choose without code: its frames,
+which ``run.make_run`` draws from ``fel.synthetic_fel`` for every
+configuration, at the configuration's ``n_frames`` and ``dim``.
 """
 
 import importlib
@@ -45,6 +53,10 @@ def traffic(name, here=HERE):
 
 def entry(name):
     return importlib.import_module(f"bench_port.entries.{name}")
+
+
+def check(name):
+    return importlib.import_module(f"bench_port.checks.{name}")
 
 
 def reference(name):

@@ -2,7 +2,8 @@
 
 import numpy as np
 
-from bench_port import check, run as runs
+from bench_port import run as runs
+from bench_port.checks import density
 from bench_port.entries import api
 
 from _bench_tiny import tiny_cell
@@ -29,9 +30,9 @@ def test_jobs_permute_and_undo(monkeypatch):
         assert np.array_equal(a["out"][key], b["out"][key]), key
     assert np.array_equal(a["out"]["rank"][calls[0]], np.arange(1200))
     # the outputs, in the original order, are the reference's
-    ref = runs.Reference(run, a["out"])
+    ref = density.Reference(run, a["out"])
     for rec in (a, b):
-        got = check.judge(rec["out"], ref, api.thresholds(run),
+        got = density.compare(rec["out"], ref, api.thresholds(run),
                           rank=rec["out"]["rank"])
         assert got["pops_wrong"] == got["nn_wrong"] == 0
         assert got["clust_wrong"] == got["clust_split"] == 0

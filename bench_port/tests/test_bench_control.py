@@ -4,7 +4,8 @@ is broken underneath, each fault planted in the program."""
 import numpy as np
 import pytest
 
-from bench_port import check, control, run as runs, spec as specs
+from bench_port import control, run as runs, spec as specs
+from bench_port.checks import density
 
 from _bench_tiny import tiny_cell
 
@@ -92,5 +93,5 @@ def test_with_answers_replaces_only_the_sample():
     got = control.with_answers(out, rows, ans)
     assert got["pops"].tolist() == [1, 2, 7, 4, 5, 7, 7, 8, 9, 10]
     assert got["nh_d2"].tolist()[5] == 0.0 and got["nh_d2"][2] == 0.5
-    assert np.allclose(got["fe"][rows], check.free_energy32(got["pops"])[rows])
+    assert np.allclose(got["fe"][rows], density.free_energy32(got["pops"])[rows])
     assert out["pops"][2] == 3

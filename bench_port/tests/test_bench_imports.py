@@ -9,7 +9,8 @@ import sys
 from bench_port import run, spec as specs
 
 HARNESS = ["bench_port.run", "bench_port.cli_job", "bench_port.control",
-           "bench_port.check", "bench_port.trace", "bench_port.textfiles",
+           "bench_port.check", "bench_port.checks.density",
+           "bench_port.trace", "bench_port.textfiles",
            "bench_port.entries.cli", "bench_port.entries.api",
            "bench_port.reference.density"]
 

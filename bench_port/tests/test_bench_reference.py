@@ -4,7 +4,9 @@ import numpy as np
 import pytest
 import torch
 
-from bench_port import check, fel
+from bench_port import fel
+from bench_port.checks import density
+from bench_port.entries import cli
 from bench_port.reference import density as rd, merge
 
 
@@ -130,16 +132,16 @@ def test_merge_numbers():
     maybe = torch.as_tensor([0, 0, 2, 2, 2, 5])
     comps = [(sure, maybe)]
     right = np.asarray([1, 1, 2, 2, 2, 3])
-    assert check.merge_numbers([right], comps) == (0, 0)
+    assert density.merge_numbers([right], comps) == (0, 0)
     also = np.asarray([1, 1, 2, 3, 3, 4])  # the unsure edge left out
-    assert check.merge_numbers([also], comps) == (0, 0)
+    assert density.merge_numbers([also], comps) == (0, 0)
     split = np.asarray([1, 2, 3, 4, 4, 5])
-    assert check.merge_numbers([split], comps) == (1, 0)
+    assert density.merge_numbers([split], comps) == (1, 0)
     joined = np.asarray([1, 1, 1, 1, 1, 1])
-    assert check.merge_numbers([joined], comps) == (0, 2)
+    assert density.merge_numbers([joined], comps) == (0, 2)
     unclustered = np.asarray([0, 0, 1, 1, 1, 0])
-    assert check.merge_numbers([unclustered], comps) == (0, 0)
-    assert check.levels([np.asarray([0, 1, 0]),
+    assert density.merge_numbers([unclustered], comps) == (0, 0)
+    assert density.levels([np.asarray([0, 1, 0]),
                          np.asarray([1, 1, 0])]).tolist() == [1, 0, 2]
 
 
@@ -151,9 +153,9 @@ def test_control_differs():
 
 
 def test_threshold_series():
-    assert [float(t) for t in check.threshold_series(0.5, 0.5, 2.0)] == [
+    assert [float(t) for t in cli.threshold_series(0.5, 0.5, 2.0)] == [
         0.5, 1.0, 1.5, 2.0]
-    assert len(check.threshold_series(0.2, 0.2, 4.0)) == 20
+    assert len(cli.threshold_series(0.2, 0.2, 4.0)) == 20
 
 
 def test_text_round_trip():

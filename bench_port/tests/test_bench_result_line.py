@@ -3,10 +3,11 @@
 import json
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 
-from bench_port import run, spec as specs
+from bench_port import check, run, spec as specs
 
 from _bench_tiny import tiny_cell
 
@@ -43,3 +44,33 @@ def test_result_keys(monkeypatch):
     assert list(traced)[-1] == "checks"
     assert {"populations.wall_s", "nn.wall_s",
             "screening.wall_s"} <= set(traced["metrics"])
+
+
+def test_the_traffic_names_the_comparison(monkeypatch):
+    """``run.judge`` takes the comparison that the traffic names
+    (``density`` where it names none); one that raises reads
+    ``outputs_unreadable``, and the run is not correct."""
+    asked = []
+
+    def comparison(name):
+        asked.append(name)
+        if name == "broken":
+            def judge(r, jobs):
+                raise KeyError("nh_id")
+        else:
+            def judge(r, jobs):
+                return {"pops_wrong": 0}, {"pops_wrong": 0}
+        return SimpleNamespace(judge=judge)
+    monkeypatch.setattr(run.specs, "check", comparison)
+    jobs = [{"rc": 0}, {"rc": 0}]
+    numbers, limits = run.judge(SimpleNamespace(traffic={}), jobs)
+    assert numbers == {"pops_wrong": 0, "jobs_failed": 0}
+    assert list(limits) == ["pops_wrong", "jobs_failed"]
+    numbers, limits = run.judge(
+        SimpleNamespace(traffic={"check": "broken"}), jobs)
+    assert asked == ["density", "broken"]
+    assert numbers == {"jobs_failed": 0, "outputs_unreadable": 1}
+    assert check.verdict(numbers, limits)[0] is False
+    numbers, _ = run.judge(SimpleNamespace(traffic={"check": "broken"}),
+                           [{"rc": 0}, {"rc": 1}])
+    assert numbers == {"jobs_failed": 1} and len(asked) == 2
