@@ -45,7 +45,36 @@
 //    256, so the packed sum is exact), and one global atomicAdd goes out
 //    per non-zero column and radius. Against a shared atomic per column
 //    per warp and step this spends one store per step and warp, and the
-//    chunk's fold reads eight words per four columns.
+//    chunk's fold reads eight words per four columns;
+//  - with several radii (the NR = 2, 4 and 8 instances) a warp skips, in
+//    each step, every radius that none of the step's pairs reaches: one
+//    min over the thread's d2's and one __reduce_min_sync give the warp's
+//    least d2 (NaN, a pad or a pair not strictly upper, is far; every d2
+//    is +0 or more, so its bits order as unsigned), one compare against
+//    the largest radius passes over a step that counts nothing, and each
+//    radius's body (its fmas, the row ones, the column packing, the
+//    shuffles and the slot store) runs only where its own w of the least
+//    is 1. A skipped radius has every d2 of the step above r^2 (or NaN),
+//    where w is exactly 0, so the counts are those of the body; a radius
+//    whose rmask bit is clear has w = 0 for every d2 and never runs. The
+//    branches are warp-uniform, as the body's shuffles need. The column
+//    slots start at 0 and the fold puts each word it reads back to 0, so
+//    a skipped step stores nothing; the fold reads only the radii that
+//    some warp of the CTA ran in the chunk (the warps' live bits in shared
+//    memory). The row counts go at each chunk's end, for the radii the
+//    warp ran, into shared counts of the pass by shared atomics, and from
+//    there out at the pass's end: held in registers as with one radius,
+//    they and the skip's few would spill at NR = 8. A scan's steps reach
+//    ~1 of its 8 radii on average, so this removes most of the per-radius
+//    work, which sets the pace there. With one radius the tile list is
+//    that radius's own and most steps count something: the least would
+//    cost more than it saves, so the NR = 1 instance keeps the plain
+//    step;
+//  - the NR > 1 instances count the warps' steps that computed distances
+//    and the (step, radius) bodies that ran: per warp and chunk in one
+//    register with its live bits, into shared sums at the chunk's end; a
+//    CTA adds the two sums into slot blockIdx % 128 of the caller's
+//    `steps` buffer by one two-lane 64-bit atomic (none where it is null).
 // The distance is the fma chain from zero in ascending dimension order and
 // the count is exactly `d2 <= r^2`, so the counts are the plain version's
 // and the Pallas kernel's.
@@ -54,14 +83,21 @@
 
 namespace {
 
+// Step counts of a CTA: slots of the caller's buffer that the CTAs'
+// atomics are spread over.
+constexpr int STEP_SLOTS = 128;
+
 // The passes of one listed tile. smem holds two column chunks, then the
-// warps' column words (NR x warps x CH / MT_RN).
+// warps' column words (NR x warps x CH / MT_RN), then, with several
+// radii, each warp's live radii of the chunk (warps words), the CTA's two
+// step counts and the pass's row counts (NR x rows per pass).
 template <int DT, int NR, bool EXACT>
 __device__ __forceinline__ void count_tile(
     const ck::CountRadii<NR>& rad, float* smem,
     const float* __restrict__ ct, int64_t n_pad, int d, int n_radii,
     int n_valid, int64_t row0, int64_t colbase, int row_block,
-    int col_block, int* __restrict__ out) {
+    int col_block, int* __restrict__ out,
+    unsigned long long* __restrict__ steps) {
   using namespace ck;
   constexpr int CH = MtChunk<DT>::value;
   constexpr int CW = CH / MT_RN;  // column words per warp and radius
@@ -78,6 +114,25 @@ __device__ __forceinline__ void count_tile(
   const bool word_lane = (tid & 31) < MT_TC;  // the warp's first thread row
   const int n_chunks =
       (int)((min((int64_t)col_block, n_valid - colbase) + CH - 1) / CH);
+
+  unsigned* s_live = s_colw + NR * n_warps * CW;
+  unsigned* s_steps = s_live + n_warps;
+  int* s_rcnt = reinterpret_cast<int*>(s_steps + 2);
+  // the warp's chunk in one register: bits 0-7 the radii it ran, 8-15 its
+  // steps that computed distances (at most CH / MT_STEP = 16), 16-31 the
+  // radius bodies they ran (at most 128)
+  unsigned tally = 0u;
+  float r2max = -1.0f;  // the largest radius on (-1: none)
+  if constexpr (NR > 1) {
+#pragma unroll
+    for (int r = 0; r < NR; ++r) r2max = fmaxf(r2max, rad.r2[r]);
+    // the slots start at 0, visible after the first pass's __syncthreads
+    uint4* colw4 = reinterpret_cast<uint4*>(s_colw);
+    for (int e = tid; e < NR * n_warps * CW / 4; e += blockDim.x)
+      colw4[e] = make_uint4(0u, 0u, 0u, 0u);
+    if (tid == 0) s_steps[0] = s_steps[1] = 0u;
+    for (int e = tid; e < NR * rows_per_pass; e += blockDim.x) s_rcnt[e] = 0;
+  }
 
   for (int p0 = 0; p0 < row_block; p0 += rows_per_pass) {
     // rows at or past n_valid have no column right of them below n_valid
@@ -135,9 +190,11 @@ __device__ __forceinline__ void count_tile(
         const int64_t cs = col0 + cbase;
         unsigned* slot = s_colw + warp * CW + cbase / MT_RN + tc;
         if (cs + MT_STEP - 1 <= rmin) {  // every column at or left of rmin
-          if (word_lane) {
+          if constexpr (NR == 1) {  // NR > 1: the slots are already 0
+            if (word_lane) {
 #pragma unroll
-            for (int r = 0; r < NR; ++r) slot[r * n_warps * CW] = 0u;
+              for (int r = 0; r < NR; ++r) slot[r * n_warps * CW] = 0u;
+            }
           }
           continue;
         }
@@ -151,8 +208,25 @@ __device__ __forceinline__ void count_tile(
             for (int n = 0; n < MT_RN; ++n)
               if (col0 + c0 + n <= row[m]) d2[m][n] = qnan();
         }
+        float least = 0.0f;
+        if constexpr (NR > 1) {
+          // the warp's least d2; fminf passes over NaN
+          float lo = d2[0][0];
+#pragma unroll
+          for (int m = 0; m < MT_RM; ++m)
+#pragma unroll
+            for (int n = 0; n < MT_RN; ++n) lo = fminf(lo, d2[m][n]);
+          least = __uint_as_float(
+              __reduce_min_sync(FULL_MASK, __float_as_uint(lo)));
+          tally += 1u << 8;
+          if (!(least <= r2max)) continue;  // no radius reached
+        }
 #pragma unroll
         for (int r = 0; r < NR; ++r) {
+          if constexpr (NR > 1) {
+            if (rad.template w<EXACT>(r, least) == 0.0f) continue;
+            tally = (tally | (1u << r)) + (1u << 16);
+          }
           // column counts onto 2^23: the float's low byte is the count
           float cc[MT_RN];
 #pragma unroll
@@ -177,20 +251,54 @@ __device__ __forceinline__ void count_tile(
           if (word_lane) slot[r * n_warps * CW] = p;
         }
       }
+      if constexpr (NR > 1) {
+        // the row counts of the radii the warp ran, into the pass's
+        // shared ones (registers for them would spill at NR = 8)
 #pragma unroll
-      for (int r = 0; r < NR; ++r)
+        for (int r = 0; r < NR; ++r) {
+          if (!((tally >> r) & 1u)) continue;
 #pragma unroll
-        for (int m = 0; m < MT_RM; ++m) rcnt[r][m] += decode_ones(ones[r][m]);
+          for (int m = 0; m < MT_RM; ++m) {
+            const int c = decode_ones(ones[r][m]);
+            if (c != 0)
+              atomicAdd(&s_rcnt[r * rows_per_pass + tr + n_tr * m], c);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int r = 0; r < NR; ++r)
+#pragma unroll
+          for (int m = 0; m < MT_RM; ++m)
+            rcnt[r][m] += decode_ones(ones[r][m]);
+      }
+      if (NR > 1 && (tid & 31) == 0) {
+        s_live[warp] = tally & 0xffu;
+        if (tally != 0u) {
+          atomicAdd(&s_steps[0], (tally >> 8) & 0xffu);
+          atomicAdd(&s_steps[1], tally >> 16);
+        }
+      }
+      tally = 0u;
       __syncthreads();
       // the chunk's column counts: the warps' words added, one atomicAdd
-      // per non-zero column and radius
+      // per non-zero column and radius; with several radii only the radii
+      // that a warp ran, their words put back to 0
+      unsigned any = 1u;
+      if constexpr (NR > 1) {
+        any = 0u;
+        for (int w = 0; w < n_warps; ++w) any |= s_live[w];
+      }
       const int words = (ch + MT_RN - 1) / MT_RN;
       for (int e = tid; e < NR * words; e += blockDim.x) {
         const int r = e / words;
         const int c4 = e - r * words;
+        if (NR > 1 && !((any >> r) & 1u)) continue;
         unsigned s = 0;
-        for (int w = 0; w < n_warps; ++w)
-          s += s_colw[(r * n_warps + w) * CW + c4];
+        for (int w = 0; w < n_warps; ++w) {
+          unsigned* word = &s_colw[(r * n_warps + w) * CW + c4];
+          s += *word;
+          if (NR > 1) *word = 0u;
+        }
         if (s == 0u || r >= n_radii) continue;
         int* o = out + (int64_t)r * n_pad + col0 + MT_RN * c4;
 #pragma unroll
@@ -201,18 +309,41 @@ __device__ __forceinline__ void count_tile(
       }
     }
 
-    // rows: fold across the MT_TC threads of each row
-#pragma unroll
-    for (int r = 0; r < NR; ++r) {
-#pragma unroll
-      for (int m = 0; m < MT_RM; ++m) {
-        int c = rcnt[r][m];
-#pragma unroll
-        for (int off = MT_TC / 2; off > 0; off >>= 1)
-          c += __shfl_xor_sync(FULL_MASK, c, off);
-        if (tc == 0 && ok[m] && r < n_radii && c != 0)
-          atomicAdd(&out[(int64_t)r * n_pad + row[m]], c);
+    if constexpr (NR > 1) {
+      // rows: the pass's shared counts (the last chunk's fold came after
+      // its __syncthreads), put back to 0 for the next pass; rows outside
+      // the sweep were NaN and counted nothing
+      for (int e = tid; e < NR * rows_per_pass; e += blockDim.x) {
+        const int c = s_rcnt[e];
+        if (c == 0) continue;
+        s_rcnt[e] = 0;
+        const int r = e / rows_per_pass;
+        atomicAdd(&out[(int64_t)r * n_pad + rmin + (e - r * rows_per_pass)],
+                  c);
       }
+    } else {
+      // rows: fold across the MT_TC threads of each row
+#pragma unroll
+      for (int r = 0; r < NR; ++r) {
+#pragma unroll
+        for (int m = 0; m < MT_RM; ++m) {
+          int c = rcnt[r][m];
+#pragma unroll
+          for (int off = MT_TC / 2; off > 0; off >>= 1)
+            c += __shfl_xor_sync(FULL_MASK, c, off);
+          if (tc == 0 && ok[m] && r < n_radii && c != 0)
+            atomicAdd(&out[(int64_t)r * n_pad + row[m]], c);
+        }
+      }
+    }
+  }
+
+  if constexpr (NR > 1) {
+    if (steps != nullptr) {
+      __syncthreads();
+      if (tid < 2 && s_steps[tid] != 0u)
+        atomicAdd(&steps[2 * (blockIdx.x % STEP_SLOTS) + tid],
+                  (unsigned long long)s_steps[tid]);
     }
   }
 }
@@ -224,9 +355,10 @@ template <int NR>
 __device__ __noinline__ void count_tile_exact(
     ck::CountRadii<NR> rad, float* smem, const float* __restrict__ ct,
     int64_t n_pad, int d, int n_radii, int n_valid, int64_t row0,
-    int64_t colbase, int row_block, int col_block, int* __restrict__ out) {
+    int64_t colbase, int row_block, int col_block, int* __restrict__ out,
+    unsigned long long* __restrict__ steps) {
   count_tile<0, NR, true>(rad, smem, ct, n_pad, d, n_radii, n_valid, row0,
-                          colbase, row_block, col_block, out);
+                          colbase, row_block, col_block, out, steps);
 }
 
 template <int DT, int NR>
@@ -236,7 +368,8 @@ pops_bidir_kernel(const float* __restrict__ ct, int64_t n_pad, int d,
                   const float* __restrict__ radii2, int n_radii, int n_valid,
                   const int* __restrict__ ti, const int* __restrict__ tj,
                   const int* __restrict__ rmask, int row_block,
-                  int col_block, int* __restrict__ out) {
+                  int col_block, int* __restrict__ out,
+                  unsigned long long* __restrict__ steps) {
   extern __shared__ __align__(16) float smem[];
   const int t = blockIdx.x;
   const int j = tj[t];
@@ -250,10 +383,11 @@ pops_bidir_kernel(const float* __restrict__ ct, int64_t n_pad, int d,
   rad.setup(radii2, n_radii, (unsigned)rm);
   if (rad.exact)
     count_tile_exact<NR>(rad, smem, ct, n_pad, d, n_radii, n_valid, row0,
-                         colbase, row_block, col_block, out);
+                         colbase, row_block, col_block, out, steps);
   else
     count_tile<DT, NR, false>(rad, smem, ct, n_pad, d, n_radii, n_valid,
-                              row0, colbase, row_block, col_block, out);
+                              row0, colbase, row_block, col_block, out,
+                              steps);
 }
 
 }  // namespace
@@ -262,7 +396,8 @@ extern "C" int ck_pops_bidir(const float* coords_t, long long n_pad, int d,
                              const float* radii2, int n_radii, int n_valid,
                              const int* ti, const int* tj, const int* rmask,
                              long long n_tiles, int row_block, int col_block,
-                             int* out, void* stream) {
+                             int* out, unsigned long long* steps,
+                             void* stream) {
   if (n_radii < 1 || n_radii > ck::MAX_RADII || row_block < 1 ||
       row_block > 1024 || col_block < 1)
     return (int)cudaErrorInvalidValue;
@@ -273,14 +408,18 @@ extern "C" int ck_pops_bidir(const float* coords_t, long long n_pad, int d,
     constexpr int CH = ck::MtChunk<DT>::value;
     const size_t smem =
         (size_t)2 * CH * d * sizeof(float) +
-        (size_t)NR * (threads / 32) * (CH / ck::MT_RN) * sizeof(unsigned);
+        (size_t)NR * (threads / 32) * (CH / ck::MT_RN) * sizeof(unsigned) +
+        (NR > 1 ? (size_t)(threads / 32 + 2 +
+                           NR * (threads / ck::MT_TC) * ck::MT_RM) *
+                      sizeof(unsigned)
+                : 0);
     if (smem > (48u << 10))
       cudaFuncSetAttribute(pops_bidir_kernel<DT, NR>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
     pops_bidir_kernel<DT, NR><<<(unsigned)n_tiles, threads, smem, st>>>(
         coords_t, (int64_t)n_pad, d, radii2, n_radii, n_valid, ti, tj, rmask,
-        row_block, col_block, out);
+        row_block, col_block, out, steps);
   }));
   return (int)cudaGetLastError();
 }

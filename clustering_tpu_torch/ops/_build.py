@@ -41,9 +41,9 @@ _F = ctypes.c_float
 # name -> argtypes of the C entry points
 SIGNATURES = {
     # coords_t, n_pad, d, radii2, n_radii, n_valid, ti, tj, rmask,
-    # n_tiles, row_block, col_block, out, stream
+    # n_tiles, row_block, col_block, out, steps, stream
     "ck_pops_bidir": [_P, _LL, _I, _P, _I, _I, _P, _P, _P, _LL, _I, _I,
-                      _P, _P],
+                      _P, _P, _P],
     # coords_t, n_pad, d, fe, oid, n_valid, ti, tj, n_tiles, row_block,
     # col_block, keys, stream
     "ck_nn_bidir": [_P, _LL, _I, _P, _P, _I, _P, _P, _LL, _I, _I, _P, _P],

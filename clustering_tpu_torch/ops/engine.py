@@ -525,6 +525,7 @@ class DensityEngine:
             # the stream has drained: no wait of its own
             stats["mask_bits"] = masks.counters["mask_bits"] = int(
                 stats["mask_bits"])
+        sweep.settle()  # the kernels' step counts, drained too
         if counts_band is not None:
             self._start_band_prefetch(counts_band)
             stats["nn_band_prefetch"] = True

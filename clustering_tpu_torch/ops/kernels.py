@@ -45,6 +45,9 @@ IMAX = int(np.iinfo(np.int32).max)
 # finite (d2, id) key
 KEY_NONE = (0x7F800000 << 32) | IMAX
 MAX_RADII_PER_LAUNCH = 8
+# slots of the step counts of pops_bidir's several-radii instances
+# (csrc/pops_bidir.cu STEP_SLOTS)
+STEP_SLOTS = 128
 DEFAULT_ROW_BLOCK = 128
 DEFAULT_COL_BLOCK = 4096
 
@@ -192,7 +195,14 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
     d2 <= radii2[r] and bit r of its ``rmask`` set adds 1 to both frames.
     The self count (``_add_self_count``) is the caller's, added once after
     any merge of partial counts. Returns (R, N_pad) int32 counts in the
-    layout's frame positions."""
+    layout's frame positions.
+
+    The launches of several radii count, on the card, the (warp, step)
+    pairs that computed distances and the (warp, step, radius) triples
+    whose count ran (a warp skips the radii that none of a step's pairs
+    reaches): ``pops_bidir.warp_steps`` and ``pops_bidir.radius_steps`` on
+    the enclosing span, summed once its owner settles it
+    (``utils.timer.count_pending``); one radius counts neither."""
     _tally("pops_bidir", ti)
     if coords_t.device.type == "cpu":
         return pops_bidir_plain(coords_t, radii2, n_valid, ti, tj, rmask,
@@ -209,6 +219,11 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
     _check(1 <= n_radii <= 31, "1 to 31 radii are supported")
     out = torch.zeros((n_radii, n_pad), dtype=torch.int32,
                       device=coords_t.device)
+    steps = None
+    if n_radii > 1 and n_tiles:
+        # (warp steps, radius steps) per slot
+        steps = torch.zeros((STEP_SLOTS, 2), dtype=torch.int64,
+                            device=coords_t.device)
     with torch.cuda.device(coords_t.device):
         stream = _stream(coords_t.device)
         for g in range(0, n_radii, MAX_RADII_PER_LAUNCH):
@@ -219,7 +234,11 @@ def pops_bidir(coords_t, radii2, n_valid, ti, tj, rmask, row_block,
             _run("ck_pops_bidir", "pops_bidir", _ptr(coords_t), n_pad,
                  n_dim, _ptr(radii2[g:]), n_g, int(n_valid), _ptr(ti),
                  _ptr(tj), _ptr(rm_g), n_tiles, row_block, col_block,
-                 _ptr(out[g:]), stream)
+                 _ptr(out[g:]), ctypes.c_void_p(None) if steps is None
+                 else _ptr(steps), stream)
+    if steps is not None:
+        timer.count_pending("pops_bidir.warp_steps", steps[:, 0])
+        timer.count_pending("pops_bidir.radius_steps", steps[:, 1])
     return out
 
 def pops_sparse_plain(rows_t, cols_t, radii2, n_valid, ti, tj, rmask,

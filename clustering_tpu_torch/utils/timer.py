@@ -3,12 +3,16 @@ the device trace.
 
 ``span(name, **counters)`` times a block of one thread; ``count(name,
 value)`` adds to a counter of the innermost span open on the calling
-thread (nothing when none is open). ``stage_timer(label)`` is a span that
-also writes the ``-v`` line ``    [label: 1.234s]``, the JAX package's
-``utils.logger.stage_timer``. Every layer of the port opens its spans
-here: ``cli``, ``models.density``, ``utils.io``, ``ops.engine``,
-``ops.screening`` and ``ops.kernels`` (its launches and tiles, as
-counters).
+thread (nothing when none is open); ``count_pending(name, tensor)`` adds
+the sum of a device tensor that queued work writes, read when the span's
+owner calls :meth:`Span.settle` after a download has drained the stream
+(or at the export, at the latest), so that counting waits on nothing.
+``stage_timer(label)`` is a span that also writes the ``-v`` line
+``    [label: 1.234s]``, the JAX package's ``utils.logger.stage_timer``.
+Every layer of the port opens its spans here: ``cli``,
+``models.density``, ``utils.io``, ``ops.engine``, ``ops.screening`` and
+``ops.kernels`` (its launches and tiles, and the step counts of
+``pops_bidir`` at several radii, as counters).
 
 A finished span holds its name; its parent (the innermost span open on
 its thread when it opened; work handed to another thread names its
@@ -116,6 +120,7 @@ class Span:
         self.cpu_ns = None
         self._cpu0 = None
         self._scope = None
+        self._pending = []
 
     def open(self):
         stack = _stack()
@@ -174,6 +179,14 @@ class Span:
         self.close()
         return False
 
+    def settle(self):
+        """Add the sums of the pending device tensors to their counters
+        (:func:`count_pending`); each ``int`` waits for its tensor."""
+        while self._pending:
+            name, tensor = self._pending.pop(0)
+            self.counters[name] = (self.counters.get(name, 0)
+                                   + int(tensor.cpu().sum()))
+
     @property
     def seconds(self):
         """The span's wall in seconds (so far, while it is open)."""
@@ -181,6 +194,7 @@ class Span:
         return (end - self.start_ns) / 1e9
 
     def as_dict(self):
+        self.settle()
         return {"id": self.id, "parent": self.parent, "name": self.name,
                 "thread": self.thread, "tid": self.tid,
                 "start_ns": self.start_ns, "end_ns": self.end_ns,
@@ -218,6 +232,16 @@ def count(name, value=1):
     if stack:
         counters = stack[-1].counters
         counters[name] = counters.get(name, 0) + value
+
+
+def count_pending(name, tensor):
+    """Add the sum of ``tensor``, which work still queued on its device
+    may write, to counter ``name`` of the innermost span open on the
+    calling thread when that span is settled (:meth:`Span.settle`);
+    nothing when none is open."""
+    stack = _stack()
+    if stack:
+        stack[-1]._pending.append((name, tensor))
 
 
 def current():

@@ -4,7 +4,10 @@ populations at the 8 radii of the ``cli-10m-scan8`` cell and at 10 (two
 launch groups of the counting kernel) on both planners, the CLI's 16
 files, the spans and counters that the scan adds to the ``-v`` log, and
 on the card ``kernels.pops_bidir`` at 8 and 10 radii against its plain
-version."""
+version, and the warp's skip of the radii that a step does not reach: at
+2, 4, 8 and 10 radii out of order and with masks that turn off radii
+that do hold pairs, counts exact, and its step counters exact where every
+or no step reaches a radius."""
 
 import contextlib
 import functools
@@ -21,6 +24,7 @@ from clustering_tpu_torch import cli as tcli
 from clustering_tpu_torch.models import density as tdensity
 from clustering_tpu_torch.ops import engine as tengine
 from clustering_tpu_torch.ops import kernels
+from clustering_tpu_torch.utils import timer
 
 N, D = 3000, 4
 # blocks small enough that many tiles admit some radii and not others
@@ -145,3 +149,86 @@ def test_cuda_pops_bidir_scan_radii_match_plain(coords, n_radii):
     got = kernels.pops_bidir(*args)
     assert torch.equal(got, kernels.pops_bidir_plain(*args))
     assert kernels.LAUNCHES["pops_bidir"] == -(-n_radii // 8)
+
+
+def _counted(args):
+    """``kernels.pops_bidir(*args)`` inside a span: (counts, the span's
+    settled counters)."""
+    with timer.span("sweep") as sweep:
+        got = kernels.pops_bidir(*args)
+    sweep.settle()
+    return got, sweep.counters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_radii", [2, 4, 8, 10])
+def test_cuda_pops_bidir_skip_matches_plain(coords, n_radii):
+    """The skip of the radii that a warp's step does not reach, on the
+    scan's frames: radii out of order, the plan's partial masks with one
+    more bit cleared on tiles that hold pairs within that radius (they
+    count 0 there): counts exact; fewer radius bodies run than steps
+    times radii."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    order = [9, 1, 5, 0, 7, 3, 8, 2, 6, 4]
+    radii = [RADII10[k] for k in order if k < n_radii]
+    eng = tengine.DensityEngine(coords, RB, CB, device="cuda")
+    name, ti, tj, rmask = eng.pops_plan(radii)
+    # the largest radius's bit off on every third tile that holds it
+    big = 1 << radii.index(max(radii))
+    cut = rmask.clone()
+    sel = ((cut & big) != 0) & (torch.arange(len(cut), device="cuda") % 3
+                                == 0)
+    cut[sel] &= ~big
+    r2 = torch.tensor([np.float32(r) * np.float32(r) for r in radii],
+                      device="cuda")
+    args = (eng.coords_t(name), r2, N, ti, tj, cut, RB, CB)
+    got, counters = _counted(args)
+    assert torch.equal(got, kernels.pops_bidir_plain(*args))
+    full = kernels.pops_bidir_plain(eng.coords_t(name), r2, N, ti, tj,
+                                    rmask, RB, CB)
+    k = radii.index(max(radii))
+    assert int(full[k].sum()) > int(got[k].sum())
+    steps, bodies = (counters["pops_bidir.warp_steps"],
+                     counters["pops_bidir.radius_steps"])
+    assert 0 < bodies < n_radii * steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rb,cb", [(16, 256), (128, 512)])
+@pytest.mark.parametrize("n_radii", [1, 2, 4, 8, 10])
+def test_cuda_pops_bidir_step_counts(rb, cb, n_radii):
+    """Distinct frames, every upper tile, every radius on: radii below
+    every distance run no radius body; radii above every distance run
+    each radius in every step (every step here holds a strictly-upper
+    pair); one radius counts nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 2048
+    x = torch.as_tensor(np.random.default_rng(n_radii).normal(
+        0.0, 1.0, size=(n, D)).astype(np.float32))
+    d2 = torch.cdist(x.double(), x.double()) ** 2
+    d2.fill_diagonal_(float("inf"))
+    least = float(d2.min())
+    assert least > 0  # no two frames equal
+    ct = x.T.contiguous().cuda()
+    nrb, ncb = n // rb, n // cb
+    ti, tj = torch.nonzero(
+        (torch.arange(ncb)[None, :] + 1) * cb - 1
+        > torch.arange(nrb)[:, None] * rb, as_tuple=True)
+    ti, tj = (t.to(torch.int32).cuda() for t in (ti, tj))
+    rmask = torch.full_like(ti, (1 << n_radii) - 1)
+    launches = -(-n_radii // 8)
+    for scale, want in ((least / 4, 0), (1e6, n_radii)):
+        r2 = torch.linspace(scale, scale / 2, n_radii,
+                            dtype=torch.float32).cuda()
+        args = (ct, r2, n, ti, tj, rmask, rb, cb)
+        got, counters = _counted(args)
+        assert torch.equal(got, kernels.pops_bidir_plain(*args))
+        if n_radii == 1:
+            assert "pops_bidir.warp_steps" not in counters
+            continue
+        steps = counters["pops_bidir.warp_steps"]
+        assert steps > 0 and steps % launches == 0
+        assert counters["pops_bidir.radius_steps"] \
+            == want * steps // launches

@@ -442,6 +442,30 @@ def test_spans_from_many_threads_are_all_counted():
     timer.reset()
 
 
+def test_pending_counts_are_summed_when_settled_or_exported():
+    """``count_pending`` keeps a tensor on the innermost span and adds
+    its sum when the span settles; the export settles what is left; with
+    no span open it does nothing."""
+    timer.reset()
+    timer.count_pending("lost", torch.ones(3, dtype=torch.int64))
+    buf = torch.zeros(4, dtype=torch.int64)
+    with timer.span("sweep") as sweep:
+        timer.count("launches")
+        timer.count_pending("steps", buf)
+        timer.count_pending("steps", buf[:2])
+    buf += 5  # the queued work's writes land before the settle
+    sweep.settle()
+    assert sweep.counters == {"launches": 1, "steps": 30}
+    sweep.settle()
+    assert sweep.counters["steps"] == 30
+    with timer.span("warm"):
+        timer.count_pending("steps", torch.full((2,), 7))
+    line = json.loads(timer.line()[len("[spans] "):])
+    assert [s["counters"] for s in line["spans"]] == [
+        {"launches": 1, "steps": 30}, {"steps": 14}]
+    timer.reset()
+
+
 def test_bench_log_readers_ignore_the_spans_line(cli_log):
     """The benchmark's ``stages.measured`` reads the same from the log
     with and without the spans line."""
