@@ -39,9 +39,10 @@ Phases, each printing its own lines; any failure exits non-zero:
      switches on and once with them off (``POPS_BIDIR``, ``NN_BIDIR``,
      ``BIDIR``); populations, nn ids, nn distances (bit for bit) and every
      clustering must be identical, every row-side kernel launched in the
-     symmetric run and no bidirectional one. Each run pipelines as the
-     CLI does (band prefetch, the screener built during NN); NN takes the
-     auto rule's phase 2 on the bidirectional run and the tiered one on
+     symmetric run and no bidirectional one, every stage of both runs
+     planned on the device. Each run pipelines as the CLI does (band
+     prefetch, the screener built during NN); NN takes the auto rule's
+     phase 2 on the bidirectional run and the tiered one on
      the symmetric run (``nn_sparse`` on a row-only tiered list), and
      once more block-bound (``tier_check``), which must give the same
      neighbours bit for bit; after the bidirectional run, the plan check
@@ -432,7 +433,7 @@ def phase_kernels(torch):
     want = hold(torch, "nn_bidir", f"{len(bti)} tiles",
                 lambda: nn_run(kernels.nn_bidir),
                 lambda: nn_run(kernels.nn_bidir_plain), keys_equal(torch, n))
-    bti, btj = map(put, pruning.tile_list(eng.nn_band_mask(bidir=False)[0]))
+    bti, btj = pruning.tile_list_device(eng.nn_band_mask(bidir=False)[1])
     rows = (ct_m, fe_l, oid)
     hold(torch, "nn_sparse", f"{len(bti)} tiles",
          lambda: nn_run(kernels.nn_sparse, *rows),
@@ -894,13 +895,17 @@ def phase_symmetric(torch, calls):
                        keep["md2"], out[1])
             warm_check(torch, keep, out)
         del keep
-    for mode, (_, _, _, walls, modes, launches, _) in runs.items():
+    for mode, (_, _, _, walls, modes, launches, stats) in runs.items():
         print(f"[symmetric] {mode} run N={N_MAIN} D={DIM}: stages "
               + json.dumps(walls))
         print(f"[symmetric] {mode} run: modes {json.dumps(modes)}, launches"
               f" {json.dumps(launches)}")
         if set(modes.values()) != {mode}:
             fail(f"the {mode} run took another route: {modes}")
+        plans = {name: st["plan"] for name, st in stats.items()}
+        if set(plans.values()) != {"device"}:
+            fail(f"a stage of the {mode} run was not planned on the device:"
+                 f" {plans}")
         on, off = ((BIDIR_KERNELS, SPARSE_KERNELS) if mode == "bidir"
                    else (SPARSE_KERNELS, BIDIR_KERNELS))
         for name in on:

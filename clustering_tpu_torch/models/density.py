@@ -295,23 +295,29 @@ def main(args, header_comment, comments_map, device):
         deferred_writes.append(write_pool.submit(
             carried(fn, parent), path, data, header_comment, snap))
 
-    will_run_pops = (not args.free_energy_input and not args.input
-                     and (args.free_energy or args.population
-                          or args.output))
-    will_run_nn = (not args.nearest_neighbors_input and not args.radii
-                   and (args.nearest_neighbors or args.output
-                        or args.radius is None)
-                   and not args.input)
+    # which stages run, decided once: the populations stage; within it,
+    # without -r and -R, an NN run for the lumping radius; after it, an NN
+    # stage, whose band pass populations starts
+    pops_stage = not args.free_energy_input and (
+        args.free_energy or args.population or args.output)
+    nn_for_lump = not args.radii and args.radius is None
+    nn_after_pops = (not args.nearest_neighbors_input and not args.radii
+                     and not args.input
+                     and (args.nearest_neighbors or args.output))
+    # the warms: not with -i, nor the NN warm with -B
+    warm_pops = pops_stage and not args.input
+    warm_nn = nn_after_pops or (nn_for_lump and not args.input
+                                and not args.nearest_neighbors_input)
     radii = (list(args.radii) if args.radii
              else [1.0 if args.radius is None else float(args.radius)])
 
     def stage_warms():
         # one thread: the warms' host work would only contend for the
         # interpreter lock with each other and with the stages
-        if will_run_pops:
+        if warm_pops:
             with span("warm.pops"):
                 engine.precompile_pops(radii)
-        if will_run_nn:
+        if warm_nn:
             with span("warm.nn"):
                 engine.precompile_nn()
 
@@ -324,10 +330,11 @@ def main(args, header_comment, comments_map, device):
                 logger(f"~~~ mesh of {mesh.size} devices: "
                        + ", ".join(map(str, mesh.devices)))
             engine = DensityEngine(coords, device=device, mesh=mesh)
-            if will_run_pops or will_run_nn:
+            if warm_pops or warm_nn:
                 warm("warm-stages", stage_warms)
         free_energy = _free_energy_stage(args, engine, comments_map,
-                                         _defer_write)
+                                         _defer_write, pops_stage,
+                                         nn_for_lump, nn_after_pops)
         nh, series_fut = _nn_stage(args, engine, free_energy, comments_map,
                                    header_comment, write_pool,
                                    deferred_writes, warm)
@@ -353,7 +360,11 @@ def _device_warm_seconds():
     return None if warm is None else {"t_device_warm": warm.seconds}
 
 
-def _free_energy_stage(args, engine, comments_map, defer_write):
+def _free_energy_stage(args, engine, comments_map, defer_write, pops_stage,
+                       nn_for_lump, nn_after_pops):
+    """The free energies of -D, or populations and free energies at the -r
+    radius (or the lumping radius), or at each -R radius (returns None);
+    the last three arguments are ``main``'s decisions."""
     if args.input and (args.free_energy or args.nearest_neighbors):
         _die("error: for input (-i) -D/-B should be used.")
     logger("~~~ free energy and population")
@@ -366,41 +377,9 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
         free_energy = io.read_free_energies(args.free_energy_input)
         io.read_comments(args.free_energy_input, comments_map)
         return free_energy
-    if not (args.free_energy or args.population or args.output):
+    if not pops_stage:
         return None
-    if args.radii:
-        logger("    calculating free energy and population")
-        if args.output:
-            _die("error: clustering cannot be done with several radii"
-                 " (-R is set).")
-        if not (args.population or args.free_energy):
-            _die("error: no output defined for populations or free"
-                 " energies.\n       why did you define -R ?")
-        radii = list(args.radii)
-        logger("    using radii: " + ", ".join(str(r) for r in radii))
-        with stage_timer("populations") as stage:
-            pops_map = engine.populations(radii)
-        _log_substages(engine, "populations", _device_warm_seconds())
-        if args.check:
-            _check_backends(engine.coords, "pops", pops_map, radii=radii,
-                            device=engine.device)
-        logger("    storing results")
-        # the populations' writes start first, and the free energies are
-        # computed while they run
-        if args.population:
-            for radius in sorted(pops_map):
-                defer_write(io.write_pops,
-                            io.stringprintf(args.population + "_%f", radius),
-                            pops_map[radius], stage)
-        if args.free_energy:
-            with span("density.free_energies", radii=len(pops_map)):
-                for radius in sorted(pops_map):
-                    defer_write(io.write_fes,
-                                io.stringprintf(args.free_energy + "_%f",
-                                                radius),
-                                dops.free_energies(pops_map[radius]), stage)
-        return None
-    if args.radius is None:
+    if nn_for_lump:
         # no radius: the lumping radius from NN statistics
         logger("    computing lumping radius")
         pops = engine.populations([1.0], nn_band_radius=1.0)[1.0]
@@ -410,32 +389,55 @@ def _free_energy_stage(args, engine, comments_map, defer_write):
         logger("        d_lump=" + io.fmt_float(radius_lump))
         comments_map["lumping_radius"] = radius_lump
         radius = radius_lump
-    else:
+    elif not args.radii:
         radius = float(args.radius)
     logger("    calculating free energy and population")
-    logger("    using radius: " + io.fmt_float(radius))
-    comments_map["clustering_radius"] = radius
-    # when the NN stage follows, populations starts its band pass from
-    # these counts
-    will_run_nn = (not args.nearest_neighbors_input
-                   and (args.nearest_neighbors or args.output)
-                   and not args.input)
+    scan = bool(args.radii)
+    if scan:
+        if args.output:
+            _die("error: clustering cannot be done with several radii"
+                 " (-R is set).")
+        if not (args.population or args.free_energy):
+            _die("error: no output defined for populations or free"
+                 " energies.\n       why did you define -R ?")
+        radii = list(args.radii)
+        logger("    using radii: " + ", ".join(str(r) for r in radii))
+    else:
+        logger("    using radius: " + io.fmt_float(radius))
+        comments_map["clustering_radius"] = radius
+        radii = [radius]
     with stage_timer("populations") as stage:
-        pops = engine.populations(
-            [radius], nn_band_radius=radius if will_run_nn else None)[radius]
+        pops_map = engine.populations(
+            radii, nn_band_radius=radii[0] if nn_after_pops else None)
     _log_substages(engine, "populations", _device_warm_seconds())
     if args.check:
-        _check_backends(engine.coords, "pops", {radius: pops},
-                        radii=[radius], device=engine.device)
+        _check_backends(engine.coords, "pops", pops_map, radii=radii,
+                        device=engine.device)
+
+    def path(name, radius):  # -R: a file per radius
+        return io.stringprintf(name + "_%f", radius) if scan else name
+
+    if scan:
+        logger("    storing results")
+    # the populations' writes start first, and the free energies are
+    # computed while they run
     if args.population:
-        logger("    storing population in: " + args.population)
-        defer_write(io.write_pops, args.population, pops, stage)
-    with span("density.free_energies", radii=1):
-        free_energy = dops.free_energies(pops)
-    if args.free_energy:
+        if not scan:
+            logger("    storing population in: " + args.population)
+        for radius in sorted(pops_map):
+            defer_write(io.write_pops, path(args.population, radius),
+                        pops_map[radius], stage)
+    if args.free_energy and not scan:
         logger("    storing free energy in: " + args.free_energy)
-        defer_write(io.write_fes, args.free_energy, free_energy, stage)
-    return free_energy
+    if scan and not args.free_energy:
+        return None
+    with span("density.free_energies", radii=len(pops_map)):
+        for radius in sorted(pops_map):
+            free_energy = dops.free_energies(pops_map[radius])
+            if args.free_energy:
+                defer_write(io.write_fes, path(args.free_energy, radius),
+                            free_energy, stage)
+    return None if scan else free_energy
 
 
 def _nn_stage(args, engine, free_energy, comments_map, header_comment,

@@ -5,10 +5,10 @@ tile sweeps over bbox-pruned tile lists, either upper-triangular
 (bidirectional kernels: each unordered pair evaluated once, serving both
 frames) or symmetric (row-side kernels over both orientations). The frame
 matrix is uploaded once per layout; the bbox distances are computed on
-the device and thresholded there. The bidirectional stages keep every
-mask and tile list on the device (``pruning.*_device``); the symmetric
-ones bring the bool planes to the host, where numpy plans the flat tile
-lists, as in the JAX package. Both give the same tiles in the same order.
+the device and thresholded there. Every stage keeps its masks and tile
+lists on the device (``pruning.*_device``) on both routes: the route
+decides only whether the plane is restricted to the upper triangle (or
+closed, ``bidir_closure_device``) and which kernel sweeps the list.
 
 With a mesh (``parallel.mesh``), each list is dealt round-robin over the
 mesh's devices (``pruning.split_tiles_balanced``) and each device sweeps
@@ -316,14 +316,6 @@ class DensityEngine:
     def _put(self, arr):
         return torch.as_tensor(np.ascontiguousarray(arr), device=self.device)
 
-    def _tiles(self, mask):
-        """Flat (ti, tj) int32 tile list of a host or device mask, on the
-        device, or None."""
-        if isinstance(mask, torch.Tensor):
-            return pruning.tile_list_device(mask)
-        tiles = pruning.tile_list(mask)
-        return None if tiles is None else tuple(map(self._put, tiles))
-
     def coords_t(self, name):
         """(D, N_pad) float32 frame matrix of layout ``name`` on device
         (its upload: a ``layout.upload.<name>`` span)."""
@@ -366,13 +358,13 @@ class DensityEngine:
                             for name in ("dim0", "morton")]).tolist()
         return "morton" if skip[1] > skip[0] else "dim0"
 
-    def _stats(self, bidir, plan, key="mode"):
+    def _stats(self, bidir, key="mode"):
         """A stage's ``last_stats`` start: its route under ``key``, its
-        planner and mesh."""
+        planner (the device, on every route) and mesh."""
         route = "bidir" if bidir else "symmetric"
         if self.mesh is None:
-            return {key: route, "plan": plan}
-        return {key: route + "-mesh", "plan": plan,
+            return {key: route, "plan": "device"}
+        return {key: route + "-mesh", "plan": "device",
                 "mesh_devices": self.mesh.size}
 
     def _shares(self, tiles, stats, stage=None):
@@ -403,10 +395,10 @@ class DensityEngine:
         """Layout name, tile list and per-tile radius masks of a
         populations sweep: (name, ti, tj, rmask), int32 tensors on the
         device. The list is the active plane at the largest radius,
-        restricted to the upper triangle and planned on the device when
-        ``bidir``, else planned on the host. ``stats``, if given, receives
-        ``t_best_sort``: the seconds spent choosing the layout (its frame
-        order, upload, bbox matrix and skip counts), the
+        restricted to the upper triangle when ``bidir``, planned on the
+        device either way. ``stats``, if given, receives ``t_best_sort``:
+        the seconds spent choosing the layout (its frame order, upload,
+        bbox matrix and skip counts), the
         ``populations.best_sort`` span's; and ``mask_bits``, the bits set
         in the masks (the (tile, radius) pairs swept) as a tensor on the
         device, with the ``populations.radius_masks`` span under
@@ -422,27 +414,18 @@ class DensityEngine:
         # the k + 1 threshold planes, the largest radius's tile list (its
         # count is the plan's host sync) and the masks gathered from it
         with span("populations.radius_masks", radii=len(radii)) as masks:
-            if bidir:
-                planes = pruning.le_planes_device(self.d2b(name), thresh2s)
-                tiles = pruning.tile_list_device(
-                    pruning.upper_tri_device(planes[0], rb, cb))
-                if tiles is None:
-                    ti = tj = rmask = torch.zeros(0, dtype=torch.int32,
-                                                  device=self.device)
-                else:
-                    ti, tj = tiles
-                    rmask = pruning.rmask_gather_device(planes[1:], ti, tj)
+            planes = pruning.le_planes_device(self.d2b(name), thresh2s)
+            # the upper-triangle plane is a temporary: it must not stay
+            # alive through the gather (0.19 GB at 10^7 frames)
+            tiles = pruning.tile_list_device(
+                pruning.upper_tri_device(planes[0], rb, cb) if bidir
+                else planes[0])
+            if tiles is None:
+                ti = tj = rmask = torch.zeros(0, dtype=torch.int32,
+                                              device=self.device)
             else:
-                planes = pruning.threshold_planes(self.d2b(name), thresh2s)
-                tiles = pruning.tile_list(planes[0])
-                if tiles is None:
-                    tiles = (np.zeros(0, np.int32),) * 2
                 ti, tj = tiles
-                rmask = np.zeros(len(ti), dtype=np.int32)
-                for r_idx in range(len(radii)):
-                    rmask |= planes[1 + r_idx][ti, tj].astype(np.int32) \
-                        << r_idx
-                ti, tj, rmask = map(self._put, (ti, tj, rmask))
+                rmask = pruning.rmask_gather_device(planes[1:], ti, tj)
         if stats is not None:
             stats["mask_bits"] = pruning.mask_bits(rmask, len(radii))
             stats["radius_masks"] = masks
@@ -450,8 +433,8 @@ class DensityEngine:
 
     def populations(self, radii, prune=True, nn_band_radius=None):
         """dict radius -> (N,) int64 populations (self included); the
-        sweep's mode ("bidir" or "symmetric") and planner ("device" or
-        "host") are in ``last_stats["populations"]``, with ``t_plan`` and
+        sweep's mode ("bidir" or "symmetric") and planner ("device") are
+        in ``last_stats["populations"]``, with ``t_plan`` and
         the part of it that chose the layout, ``t_best_sort``, the layout
         it swept, ``order`` ("dim0", "morton"; "orig" unpruned), and the
         host finish, ``finish`` ("native" or "numpy") and ``t_finish``
@@ -476,8 +459,7 @@ class DensityEngine:
         together, ``t_finish`` ``populations.finish``."""
         radii = list(radii)
         bidir = prune and self.POPS_BIDIR
-        stats = self._stats(bidir, "host" if prune and not bidir
-                            else "device")
+        stats = self._stats(bidir)
         with span("populations.plan") as plan:
             if prune:
                 name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
@@ -621,16 +603,15 @@ class DensityEngine:
         return list(zip(*(self._spread.copies(t) for t in rows)))
 
     def nn_band_mask(self, bidir=True, band_blocks=NN_BAND_BLOCKS):
-        """The band pass's tile mask and the mask it sweeps: on the device,
-        the band and its upper-triangular closure, when ``bidir``; else
-        the band on the host (numpy), twice."""
+        """The band pass's tile mask and the mask it sweeps, on the device:
+        the band and, when ``bidir``, its upper-triangular closure, else
+        the band itself."""
         rb, cb = self.row_block, self.col_block
-        nrb, ncb = self.n_pad // rb, self.n_pad // cb
+        band = pruning.band_mask_device(self.n_pad // rb, self.n_pad // cb,
+                                        rb, cb, band_blocks * cb,
+                                        self.device)
         if bidir:
-            band = pruning.band_mask_device(nrb, ncb, rb, cb,
-                                            band_blocks * cb, self.device)
             return band, pruning.bidir_closure_device(band, rb, cb)
-        band = pruning.band_mask(nrb, ncb, rb, cb, band_blocks * cb)
         return band, band
 
     def _nn_band(self, fe_l, order_name, band_blocks, bidir, stats):
@@ -640,16 +621,17 @@ class DensityEngine:
         rank plans alike), both orders' phase-2 activity masks, the band's
         tiles taken out of its own order's. Returns {"keys": the key buffer
         after the band pass, "acts": the (dim0, morton) masks, "work":
-        their active counts}; masks and counts stay on the device when
-        ``bidir`` (no host sync but the list's count), else on the host.
-        Fills ``stats``' band_tiles and t_plan (its ``nn.plan`` spans)."""
+        their active counts}, all on the device (no host sync but the
+        band list's count). Fills ``stats``' band_tiles and t_plan (its
+        ``nn.plan`` spans)."""
         rb = self.row_block
         nrb = self.n_pad // rb
         keys = kernels.nn_keys_init(self.n_pad, self.device)
         band, band_eff = self._planned(stats, self.nn_band_mask, bidir,
                                        band_blocks)
         self._nn_sweep(self._nn_rows(order_name, fe_l),
-                       self._planned(stats, self._tiles, band_eff), keys,
+                       self._planned(stats, pruning.tile_list_device,
+                                     band_eff), keys,
                        bidir, stats, "band")
         del band_eff
         d_band, _ = kernels.unpack_keys(keys[:, :self.n])
@@ -661,13 +643,10 @@ class DensityEngine:
             ub[:self.n] = ub_oid[oid[:self.n]]
             row_ub = ub.reshape(nrb, rb).amax(dim=1)
             act = self.d2b(name) <= row_ub[:, None]
-            if not bidir:
-                act = act.cpu().numpy()
             if name == order_name:
                 act = act & ~band
             acts.append(act)
-        work = [a.sum() for a in acts]
-        work = torch.stack(work) if bidir else [int(w) for w in work]
+        work = torch.stack([a.sum() for a in acts])
         return {"keys": keys, "acts": acts, "work": work}
 
     # -- the band prefetch -----------------------------------------------------
@@ -811,12 +790,13 @@ class DensityEngine:
         widen whole row blocks (the JAX engine's ``_nn_tiered_plan`` and
         ``_nn_tiered_bidir_plan``). Tiers come from the band pass's
         distances in ``keys``. Bidirectional: every frame re-sorted, the
-        active mask closed upper-triangularly on the device; row-side: only
-        the rows re-sorted, against the winner's columns, the list planned
-        on the host. Returns (rows, cols, tiles): the sweep's rows on the
-        engine's device, its columns for each device (None: the rows') and
-        its tile list (or None). ``stats`` receives the tier split:
-        ``tier_frames``, the frames of each tier, and ``taus``."""
+        active mask closed upper-triangularly; row-side: only the rows
+        re-sorted, against the winner's columns; the list is planned on
+        the device either way. Returns (rows, cols, tiles): the sweep's
+        rows on the engine's device, its columns for each device (None:
+        the rows') and its tile list (or None). ``stats`` receives the
+        tier split: ``tier_frames``, the frames of each tier, and
+        ``taus``."""
         rb, cb = self.row_block, self.col_block
         n_tiers = len(tier_qs) + 1
         d_band, _ = kernels.unpack_keys(keys)
@@ -828,11 +808,11 @@ class DensityEngine:
         if bidir:
             *t_rows, active = _tiered_layout_sym(*rows[0], tier_w, taus,
                                                  perm, rb, cb, n_tiers)
-            return tuple(t_rows), None, self._tiles(
+            return tuple(t_rows), None, pruning.tile_list_device(
                 pruning.bidir_closure_device(active, rb, cb))
         *t_rows, active = _tiered_layout(*rows[0], tier_w, taus, perm, rb,
                                          cb, n_tiers)
-        return tuple(t_rows), rows, self._tiles(active.cpu().numpy())
+        return tuple(t_rows), rows, pruning.tile_list_device(active)
 
     def _nn_tier_qs(self, tier_qs, block_tiles, bidir):
         """The quantiles of a tiered plan to try, or None: an explicit
@@ -882,7 +862,7 @@ class DensityEngine:
         nhhd_idx, nhhd_d2) numpy arrays; absent neighbours are (0, 0.0).
 
         ``last_stats["nn"]`` holds the route ("bidir", "symmetric",
-        "-mesh" on a mesh), ``bidir``, the planner ("device" or "host"),
+        "-mesh" on a mesh), ``bidir``, the planner ("device"),
         ``mode`` ("tiered", "block-bound", or "dense" without a band),
         ``band_prefetched``, ``order``, the tile counts of both passes, and
         three disjoint times: ``t_plan`` (building masks, tile lists and
@@ -896,8 +876,7 @@ class DensityEngine:
         rb, cb = self.row_block, self.col_block
         nrb, ncb = self.n_pad // rb, self.n_pad // cb
         bidir = self._nn_bidir_ok()
-        stats = self._stats(bidir, "device" if bidir else "host",
-                            key="route")
+        stats = self._stats(bidir, key="route")
         stats.update(bidir=bidir, mode="dense", band_prefetched=False,
                      band_tiles=0, phase2_tiles=0, t_plan=0.0)
         if self.mesh is not None:
@@ -931,8 +910,7 @@ class DensityEngine:
                     band = pf
                     stats.update(band_prefetched=True,
                                  band_tiles=pf["band_tiles"])
-                keys, work = band["keys"], band["work"]
-                work = work.tolist() if bidir else work
+                keys, work = band["keys"], band["work"].tolist()
                 # the smaller work wins, dim0 on ties
                 pick = 1 if work[1] < work[0] else 0
                 name, active = ("dim0", "morton")[pick], band["acts"][pick]
@@ -943,13 +921,12 @@ class DensityEngine:
         else:
             keys = kernels.nn_keys_init(self.n_pad, self.device)
             name = order_name
-            active = (torch.ones((nrb, ncb), dtype=torch.bool,
-                                 device=self.device) if bidir
-                      else np.ones((nrb, ncb), dtype=bool))
+            active = torch.ones((nrb, ncb), dtype=torch.bool,
+                                device=self.device)
         with span("nn.plan") as plan:
             if bidir:
                 active = pruning.bidir_closure_device(active, rb, cb)
-            tiles = self._tiles(active)
+            tiles = pruning.tile_list_device(active)
             del active
             rows = self._nn_rows(name, self._fe_layout(fe, name))
             cols = None

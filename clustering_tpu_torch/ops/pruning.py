@@ -12,12 +12,15 @@ Device planning (the ``*_device`` functions): the same masks as torch
 ops on the tensors' device, and :func:`tile_list_device` compacts them
 there, so no (nrb, ncb) plane crosses to the host; the only host traffic
 is the tile count. They emit the numpy planners' tile sets in the same
-row-major order. The engines plan their bidirectional stages with them
-at every N: the JAX package gates them at 2^22 padded frames, but on the
-card no size has shown the host plan faster (``chip_smoke.py`` times both
-planners on the same masks at 2^20 and 2^23). The symmetric stages and
-the skip-word planners plan on the host, as in the JAX package. Not
-ported from the JAX package:
+row-major order. The engines plan every stage with them, on both routes
+and at every N: the JAX package gates them at 2^22 padded frames, but on
+the card no size has shown the host plan faster (``chip_smoke.py`` times
+both planners on the same masks at 2^20 and 2^24). The numpy planners
+(:func:`threshold_planes`, :func:`tile_list`, :func:`band_mask`,
+:func:`bidir_closure`, :func:`upper_mask`) stay as the reference the
+tests hold the device planners and the JAX package against; no engine
+stage calls them, and only the skip-word planners of the dense-grid
+library functions plan on the host. Not ported from the JAX package:
 
 - ``window_counts_device`` and the column windows of
   ``tile_list_device``: windows bound the Pallas kernels' VMEM
@@ -149,7 +152,7 @@ def le_planes_device(d2b, thresh2s, strict=False):
 
 def threshold_planes(d2b, thresh2s, strict=False):
     """:func:`le_planes_device` downloaded: (T, nrb, ncb) host bool
-    planes."""
+    planes (a reference: no stage calls it)."""
     return le_planes_device(d2b, thresh2s, strict).cpu().numpy()
 
 
@@ -157,7 +160,8 @@ def bidir_closure(active, row_block, col_block):
     """Upper-triangular closure of an active-tile set for bidirectional
     sweeps: tiles ``upper AND (A OR M)``, where M marks the mirrors of
     active tiles (coarsened to col-block granularity). Every ordered pair
-    demanded by ``active`` is evaluated by exactly one kept tile."""
+    demanded by ``active`` is evaluated by exactly one kept tile. The
+    reference of :func:`bidir_closure_device`: no stage calls it."""
     nrb, ncb = active.shape
     if col_block % row_block != 0:
         raise ValueError("bidir_closure needs col_block % row_block == 0")
@@ -172,7 +176,8 @@ def bidir_closure(active, row_block, col_block):
 
 
 def upper_mask(nrb, ncb, row_block, col_block):
-    """Tiles that intersect the strict upper triangle."""
+    """Tiles that intersect the strict upper triangle (the reference of
+    :func:`upper_tri_device`: no stage calls it)."""
     ri = np.arange(nrb)[:, None]
     cj = np.arange(ncb)[None, :]
     return (cj + 1) * col_block > ri * row_block
@@ -180,7 +185,8 @@ def upper_mask(nrb, ncb, row_block, col_block):
 
 def band_mask(n_row_blocks, n_col_blocks, row_block, col_block, half_width):
     """Keep-matrix for a diagonal band of +-half_width frames (the NN
-    bounding pass)."""
+    bounding pass): the reference of :func:`band_mask_device`, which the
+    engine plans with, and the band of :func:`band_skip_words`."""
     row_centers = (np.arange(n_row_blocks) + 0.5) * row_block
     col_lo = (np.arange(n_col_blocks)) * col_block
     col_hi = col_lo + col_block
@@ -326,7 +332,8 @@ def ub_skip_words(coords_padded, row_block, col_block, row_ub):
 
 def tile_list(active):
     """Row-major flat (ti, tj) int32 lists of the active tiles, or None
-    when nothing is active."""
+    when nothing is active (the reference of :func:`tile_list_device`: no
+    stage calls it)."""
     ti, tj = np.nonzero(active)
     if len(ti) == 0:
         return None

@@ -18,8 +18,7 @@ reach the same fixpoint:
   symmetric: the row-side kernel over the full list (both orientations),
   a tile swept when its column block is dirty.
 
-The bidirectional sweep's tile lists are planned on the device, the
-symmetric sweep's on the host (the same tiles in the same order).
+Both sweeps' tile lists are planned on the device.
 
 With a mesh (``parallel.mesh``), each device sweeps its round-robin share
 of the list against copies of its own of the coordinates, the labels and
@@ -58,9 +57,10 @@ def pointer_jump(table):
 
 def screen_active(below, n_below, row_lo, row_block, col_block, triangular):
     """Tiles that can hold an admissible pair: the strict-< bbox plane
-    ``below`` (numpy, or a tensor on any device) inside the n_below
-    prefix, touching the new-frame cross when ``row_lo`` > 0, and
-    (``triangular``) intersecting the upper triangle."""
+    ``below`` (a tensor on any device, or numpy: the tests' reference,
+    which no sweep plans with) inside the n_below prefix, touching the
+    new-frame cross when ``row_lo`` > 0, and (``triangular``)
+    intersecting the upper triangle."""
     nrb, ncb = below.shape
     if isinstance(below, torch.Tensor):
         ri = torch.arange(nrb, device=below.device)[:, None]
@@ -146,18 +146,13 @@ class ScreeningEngine:
         return self._below[1]
 
     def tile_list(self, row_lo, n_below, max_dist2, triangular=True):
-        """The tiles of :func:`screen_active` at this linking distance, as
-        a flat row-major (ti, tj) int32 list, or None: tensors planned on
-        the device when ``triangular`` (the bidirectional sweep's list),
-        else numpy planned on the host (the symmetric sweep's)."""
-        below = self._below_plane(max_dist2)
-        if triangular:
-            return pruning.tile_list_device(screen_active(
-                below, n_below, row_lo, self.row_block, self.col_block,
-                True))
-        return pruning.tile_list(screen_active(
-            below.cpu().numpy(), n_below, row_lo, self.row_block,
-            self.col_block, False))
+        """The tiles of :func:`screen_active` at this linking distance,
+        planned on the device: a flat row-major (ti, tj) list of int32
+        tensors, or None; the bidirectional sweep's list when
+        ``triangular``, else the symmetric sweep's."""
+        return pruning.tile_list_device(screen_active(
+            self._below_plane(max_dist2), n_below, row_lo, self.row_block,
+            self.col_block, triangular))
 
     def union_size(self, n_below):
         """Union prefix: power-of-two col-block count >= n_below."""
@@ -198,15 +193,13 @@ class ScreeningEngine:
         ``screening.fixpoint`` spans; the latter counts ``sweeps`` and
         ``swept_tiles``."""
         bidir = self._bidir_ok()
-        plan = "device" if bidir else "host"
         with span("screening.plan") as plan_span:
             tiles = self.tile_list(row_lo, n_below, max_dist2,
                                    triangular=bidir)
             if tiles is None:
                 return labels
             n_tiles = len(tiles[0])
-            shares = self._spread.shares(tuple(
-                torch.as_tensor(t, device=self.device) for t in tiles))
+            shares = self._spread.shares(tiles)
         with span("screening.fixpoint") as fixpoint:
             labels, iters, swept = self._fixpoint(labels, n_below,
                                                   max_dist2, bidir, shares)
@@ -214,7 +207,7 @@ class ScreeningEngine:
             count("swept_tiles", swept)
             mode = "bidir" if bidir else "symmetric"
             stats = {"sweeps": iters, "tiles_per_sweep": n_tiles,
-                     "swept_tiles": swept, "mode": mode, "plan": plan,
+                     "swept_tiles": swept, "mode": mode, "plan": "device",
                      "t_plan": plan_span.seconds}
             tag = ""
             if self.mesh is not None:
@@ -226,7 +219,7 @@ class ScreeningEngine:
             if is_verbose() and not self._quiet:
                 logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
                        f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
-                       f" {plan} plan, host-driven]")
+                       " device plan, host-driven]")
         stats["t_fixpoint"] = fixpoint.seconds
         self.last_stats = stats
         return labels

@@ -247,6 +247,43 @@ def test_cli_multi_radius_and_lumping_radius(tmp_path, monkeypatch):
     assert "#@   clustering_radius = %.5f" % lump in head
 
 
+@pytest.mark.parametrize("case", ["files", "nn_dies"])
+def test_cli_scan_of_one_radius(tmp_path, monkeypatch, capsys, case):
+    """``-R r`` with one radius takes the populations path of ``-r r``:
+    its pop_%f and fe_%f files hold the values of the ``-r`` files; with
+    ``-b`` it starts no band prefetch, and the NN stage dies with the
+    reference's message."""
+    coords = _blobs(300, 2, seed=63)
+    monkeypatch.setenv(tcli.DEVICE_ENV, "cpu")
+    monkeypatch.chdir(tmp_path)
+    np.savetxt("c.dat", coords, fmt="%.6f")
+    if case == "files":
+        for flag in ("-r", "-R"):
+            assert tcli.main(["density", "-f", "c.dat", flag, "0.2", "-p",
+                              "pop", "-d", "fe"]) == 0
+        for name in ("pop", "fe"):
+            np.testing.assert_array_equal(np.loadtxt(f"{name}_{0.2:f}"),
+                                          np.loadtxt(name))
+        return
+    bands = []
+    populations = tengine.DensityEngine.populations
+
+    def logged(self, radii, *args, **kw):
+        bands.append(kw.get("nn_band_radius"))
+        return populations(self, radii, *args, **kw)
+
+    monkeypatch.setattr(tengine.DensityEngine, "populations", logged)
+    capsys.readouterr()
+    with pytest.raises(SystemExit) as exc:
+        tcli.main(["density", "-f", "c.dat", "-R", "0.2", "-p", "pop",
+                   "-b", "nn"])
+    assert exc.value.code == 1 and bands == [None]
+    assert capsys.readouterr().err == (
+        "error: nearest neighbor calculation cannot be done with\n"
+        "       several radii (-R is set).\n")
+    assert os.path.exists(f"pop_{0.2:f}") and not os.path.exists("nn")
+
+
 def _data_lines(path):
     """The file's lines without the plain '#' header (argv, time stamp)."""
     with open(path) as fh:

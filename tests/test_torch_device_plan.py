@@ -1,9 +1,9 @@
 """The port's device planning against the JAX package's device planners
 and against the numpy (host) planners.
 
-The bidirectional stages plan on the device, the symmetric ones on the
-host. Each device planner must emit the host planner's tile set in the
-same row-major order, so that the plan never changes a result
+Every stage plans on the device, on both routes; the numpy planners are
+the reference. Each device planner must emit the numpy planner's tile set
+in the same row-major order, so that the plan never changes a result
 (``tests/test_device_plan.py`` pins the same invariant for the JAX
 package). All comparisons are exact, except the nearest neighbour
 distances against the JAX engine, which recomputes them with XLA's
@@ -23,6 +23,7 @@ from clustering_tpu.ops import neighbors as jnops
 from clustering_tpu.ops import pruning as jpruning
 from clustering_tpu.ops import screening as jscreening
 from clustering_tpu_torch.ops import engine as tengine
+from clustering_tpu_torch.ops import kernels as tkernels
 from clustering_tpu_torch.ops import pruning as tpruning
 from clustering_tpu_torch.ops import screening as tscreening
 from clustering_tpu_torch.ops.density import free_energies
@@ -132,7 +133,7 @@ def test_rmask_gather_device(n_r):
                                         jnp.asarray(tj))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    # the engine's host rmask
+    # the numpy reference
     host = np.zeros(len(ti), np.int32)
     for r in range(n_r):
         host |= planes[r][ti, tj].astype(np.int32) << r
@@ -193,14 +194,16 @@ def _port_run(blobs, cb=CB, device="cpu"):
     return pops, nn, eng.last_stats
 
 
-def _host_pops_plan(eng, name, radii):
-    """The bidirectional populations plan by the numpy planners: (ti, tj,
+def _host_pops_plan(eng, name, radii, bidir=True):
+    """The populations plan of the route by the numpy planners: (ti, tj,
     rmask) over the engine's bbox matrix of layout ``name``."""
     rb, cb = eng.row_block, eng.col_block
     sq = [np.float32(r) * np.float32(r) for r in radii]
     planes = tpruning.threshold_planes(eng.d2b(name), [max(sq)] + sq)
-    active = planes[0] & tpruning.upper_mask(eng.n_pad // rb,
-                                             eng.n_pad // cb, rb, cb)
+    active = planes[0]
+    if bidir:
+        active = active & tpruning.upper_mask(eng.n_pad // rb,
+                                              eng.n_pad // cb, rb, cb)
     ti, tj = tpruning.tile_list(active)
     rmask = np.zeros(len(ti), np.int32)
     for r in range(len(radii)):
@@ -211,33 +214,64 @@ def _host_pops_plan(eng, name, radii):
 def _assert_lists_equal(got, want):
     assert (got is None) == (want is None)
     for a, b in zip(got or (), want or ()):
+        assert isinstance(a, torch.Tensor) and a.dtype == torch.int32
         np.testing.assert_array_equal(a.cpu().numpy(), b)
 
 
-def _assert_plans_match(eng, radii, series, md2):
-    """Every device planner of the bidirectional stages emits the numpy
-    planners' list on the same masks: populations (with its rmask), the
-    NN band's closure, and each series step's screening list."""
+def _tiered_lists(eng, fe, bidir):
+    """The tiered phase 2's device list of the route, from a band pass in
+    Morton order over the dim0 layout's rows, and the numpy planners'
+    list of the same active mask (closed upper-triangularly when
+    ``bidir``)."""
     rb, cb = eng.row_block, eng.col_block
-    name, *dev = eng.pops_plan(radii)
-    _assert_lists_equal(dev, _host_pops_plan(eng, name, radii))
-    band, closure = eng.nn_band_mask()
+    order = tengine.NN_BAND_ORDER
+    stats = {"band_tiles": 0, "t_plan": 0.0}
+    keys = eng._nn_band(eng._fe_layout(fe, order), order,
+                        tengine.NN_BAND_BLOCKS, bidir, stats)["keys"]
+    rows = eng._nn_rows("dim0", eng._fe_layout(fe, "dim0"))
+    qs = eng.TIER_QS_DEFAULT
+    _, _, tiles = eng._nn_tiered_plan(rows, keys, qs, bidir, dict(stats))
+    tier, taus = tengine._ub_tiers(tkernels.unpack_keys(keys)[0],
+                                   eng.n, qs)
+    tier_w, perm = tengine._tier_sort_perm(tier, rows[0][2], eng.n,
+                                           len(qs) + 1)
+    layout = tengine._tiered_layout_sym if bidir else tengine._tiered_layout
+    active = layout(*rows[0], tier_w, taus, perm, rb, cb,
+                    len(qs) + 1)[3].cpu().numpy()
+    if bidir:
+        active = tpruning.bidir_closure(active, rb, cb)
+    return tiles, tpruning.tile_list(active)
+
+
+def _assert_plans_match(eng, radii, series, md2, bidir=True, fe=None):
+    """Every device planner of the route emits the numpy planners' list
+    on the same masks: populations (with its rmask), the NN band (its
+    closure when ``bidir``), the tiered phase 2 (from ``fe``, if given)
+    and each series step's screening list (upper-triangular when
+    ``bidir``)."""
+    rb, cb = eng.row_block, eng.col_block
+    name, *dev = eng.pops_plan(radii, bidir)
+    _assert_lists_equal(dev, _host_pops_plan(eng, name, radii, bidir))
+    band, swept = eng.nn_band_mask(bidir)
     nrb, ncb = band.shape
     host_band = tpruning.band_mask(nrb, ncb, rb, cb,
                                    tengine.NN_BAND_BLOCKS * cb)
     np.testing.assert_array_equal(band.cpu().numpy(), host_band)
-    _assert_lists_equal(tpruning.tile_list_device(closure),
-                        tpruning.tile_list(
-                            tpruning.bidir_closure(host_band, rb, cb)))
+    if bidir:
+        host_band = tpruning.bidir_closure(host_band, rb, cb)
+    _assert_lists_equal(tpruning.tile_list_device(swept),
+                        tpruning.tile_list(host_band))
+    if fe is not None:
+        _assert_lists_equal(*_tiered_lists(eng, fe, bidir))
     seng, row_lo = series.engine, 0
     below = seng._below_plane(md2)
     for nb in series.n_below_per_band:
         for lo in {0, row_lo}:
             _assert_lists_equal(
-                seng.tile_list(lo, int(nb), md2),
+                seng.tile_list(lo, int(nb), md2, triangular=bidir),
                 tpruning.tile_list(tscreening.screen_active(
                     below.cpu().numpy(), int(nb), lo, seng.row_block,
-                    seng.col_block, True)))
+                    seng.col_block, bidir)))
         row_lo = int(nb)
 
 
@@ -271,13 +305,13 @@ def test_engine_device_plan_equals_jax(blobs, monkeypatch, cb):
             assert st_dev["nn"][key] == je.last_stats["nn"][key]
 
 
-def test_symmetric_routes_stay_host_planned(blobs, monkeypatch):
-    """The host-planned symmetric route gives the device-planned
+def test_symmetric_routes_are_device_planned(blobs, monkeypatch):
+    """The symmetric route plans on the device and gives the
     bidirectional route's results."""
     monkeypatch.setattr(tengine.DensityEngine, "POPS_BIDIR", False)
     monkeypatch.setattr(tengine.DensityEngine, "NN_BIDIR", False)
     p_sym, nn_sym, st = _port_run(blobs)
-    assert st["populations"]["plan"] == st["nn"]["plan"] == "host"
+    assert st["populations"]["plan"] == st["nn"]["plan"] == "device"
     assert st["populations"]["mode"] == st["nn"]["route"] == "symmetric"
     monkeypatch.undo()
     p_dev, nn_dev, _ = _port_run(blobs)
@@ -307,17 +341,20 @@ def test_pops_plan_device_lists(blobs):
     for a in dev:
         assert isinstance(a, torch.Tensor) and a.dtype == torch.int32
     _assert_lists_equal(dev, _host_pops_plan(eng, name, radii))
-    # the host-planned symmetric list: the whole plane, its upper part
-    # the device list
-    name_s, ti, tj, rmask = eng.pops_plan(radii, bidir=False)
+    # the symmetric list, planned on the device too: the whole plane, its
+    # upper part the bidirectional list
+    name_s, *sym = eng.pops_plan(radii, bidir=False)
     assert name_s == name
+    _assert_lists_equal(sym, _host_pops_plan(eng, name, radii, False))
+    ti, tj, rmask = sym
     upper = ((tj + 1) * CB > ti * RB).numpy()
     _assert_lists_equal([ti[upper], tj[upper], rmask[upper]],
                         [a.numpy() for a in dev])
     assert not upper.all()
 
 
-def test_plans_match_host_planners(blobs):
+@pytest.mark.parametrize("bidir", [True, False], ids=["bidir", "symmetric"])
+def test_plans_match_host_planners(blobs, bidir):
     eng = tengine.DensityEngine(blobs, RB, CB, device="cpu")
     pops = eng.populations([0.3])[0.3]
     fe = free_energies(pops)
@@ -326,7 +363,7 @@ def test_plans_match_host_planners(blobs):
     series = tscreening.ThresholdSeriesScreener(
         blobs, fe, [np.float32(t) for t in (0.5, 1.0, 2.0)], RB, CB,
         device="cpu")
-    _assert_plans_match(eng, [0.3], series, md2)
+    _assert_plans_match(eng, [0.3], series, md2, bidir, fe)
 
 
 @pytest.mark.parametrize("stage", ["populations", "nn", "screening"])
@@ -385,8 +422,8 @@ def _port_series(blobs, fe, hd):
 @pytest.mark.parametrize("seeded", [False, True])
 def test_series_device_plan_equals_host_and_jax(series_blobs, series_fe,
                                                 monkeypatch, seeded):
-    """The device-planned bidirectional series against the host-planned
-    symmetric one and the JAX series under its device plan."""
+    """The bidirectional series against the symmetric one, both planned
+    on the device, and the JAX series under its device plan."""
     hd = None
     if seeded:
         nn = jnops.nearest_neighbors(series_blobs, series_fe, backend="xla",
@@ -394,9 +431,10 @@ def test_series_device_plan_equals_host_and_jax(series_blobs, series_fe,
         hd = (np.asarray(nn[2]), np.asarray(nn[3]))
     got, st_dev = _port_series(series_blobs, series_fe, hd)
     monkeypatch.setattr(tscreening.ScreeningEngine, "BIDIR", False)
-    want, st_host = _port_series(series_blobs, series_fe, hd)
-    assert all(st["plan"] == "device" for st in st_dev)
-    assert all(st["plan"] == "host" for st in st_host)
+    want, st_sym = _port_series(series_blobs, series_fe, hd)
+    for stats, mode in ((st_dev, "bidir"), (st_sym, "symmetric")):
+        assert all(st["plan"] == "device" and st["mode"] == mode
+                   for st in stats)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
     monkeypatch.setenv(JAX_DEVICE_PLAN, "1")
@@ -412,9 +450,9 @@ def test_series_device_plan_equals_host_and_jax(series_blobs, series_fe,
 
 def test_screening_run_device_plan(series_blobs, series_fe, monkeypatch,
                                    capsys):
-    """Single-shot run: the device-planned bidirectional fixpoint and the
-    host-planned symmetric one equal the JAX oracle, and the verbose line
-    names the planner that ran."""
+    """Single-shot run: the bidirectional fixpoint and the symmetric one
+    equal the JAX oracle, and the verbose line names the route that ran
+    and the device plan."""
     order = np.argsort(series_fe, kind="stable")
     cs = series_blobs[order]
     labels0 = np.arange(len(cs), dtype=np.int32)
@@ -433,8 +471,9 @@ def test_screening_run_device_plan(series_blobs, series_fe, monkeypatch,
             np.testing.assert_array_equal(got, want)
     finally:
         tlogger.set_verbose(False)
-    assert "device plan" in lines[True] and "host plan" not in lines[True]
-    assert "host plan" in lines[False] and "device plan" not in lines[False]
+    assert " bidir, device plan," in lines[True]
+    assert " symmetric, device plan," in lines[False]
+    assert "host plan" not in lines[True] + lines[False]
 
 
 # -- on the card ------------------------------------------------------------------
@@ -467,8 +506,9 @@ def _card_run(coords, rb, cb):
 @pytest.mark.parametrize("rb,cb", [(128, 4096), (32, 256)])
 def test_card_device_plan_equals_host_plan(monkeypatch, rb, cb):
     """2^16 frames on the card: every device planner's list equals the
-    numpy planners' on the same masks, and the device-planned
-    bidirectional run gives the host-planned symmetric run's outputs."""
+    numpy planners' on the same masks, on both routes, and the
+    bidirectional run gives the symmetric run's outputs, both planned on
+    the device."""
     _need_cuda()
     rng = np.random.default_rng(7)
     centers = rng.normal(0.0, 1.0, size=(4, 4))
@@ -478,15 +518,17 @@ def test_card_device_plan_equals_host_plan(monkeypatch, rb, cb):
     dev = _card_run(coords, rb, cb)
     assert dev[3] == ("device",) * 3
     eng, series, md2 = dev[4]
-    _assert_plans_match(eng, [0.1], series, md2)
+    fe = free_energies(dev[0])
+    for bidir in (True, False):
+        _assert_plans_match(eng, [0.1], series, md2, bidir, fe)
     for cls, switch in ((tengine.DensityEngine, "POPS_BIDIR"),
                         (tengine.DensityEngine, "NN_BIDIR"),
                         (tscreening.ScreeningEngine, "BIDIR")):
         monkeypatch.setattr(cls, switch, False)
-    host = _card_run(coords, rb, cb)
-    assert host[3] == ("host",) * 3
-    np.testing.assert_array_equal(dev[0], host[0])
-    for a, b in zip(dev[1], host[1]):
+    sym = _card_run(coords, rb, cb)
+    assert sym[3] == ("device",) * 3
+    np.testing.assert_array_equal(dev[0], sym[0])
+    for a, b in zip(dev[1], sym[1]):
         np.testing.assert_array_equal(a, b)
-    for a, b in zip(dev[2], host[2]):
+    for a, b in zip(dev[2], sym[2]):
         np.testing.assert_array_equal(a, b)

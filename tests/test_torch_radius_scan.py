@@ -1,7 +1,7 @@
 """The radius scan (``density -R r1 ... rk``) of the port against the
 benchmark's plain reference ``bench_port.reference.scan``: the engine's
 populations at the 8 radii of the ``cli-10m-scan8`` cell and at 10 (two
-launch groups of the counting kernel) on both planners, the CLI's 16
+launch groups of the counting kernel) on both routes, the CLI's 16
 files, the spans and counters that the scan adds to the ``-v`` log, and
 on the card ``kernels.pops_bidir`` at 8 and 10 radii against its plain
 version, and the warp's skip of the radii that a step does not reach: at
@@ -31,7 +31,7 @@ N, D = 3000, 4
 RB, CB = 16, 256
 RADII8 = [0.05, 0.075, 0.1, 0.125, 0.15, 0.175, 0.2, 0.25]
 RADII10 = RADII8 + [0.3, 0.35]
-PLANNERS = {"device": True, "host": False}
+ROUTES = {"bidir": True, "symmetric": False}
 
 
 @pytest.fixture(scope="module")
@@ -51,20 +51,19 @@ def _popcount(rmask):
 
 
 @pytest.mark.parametrize("radii", [RADII8, RADII10], ids=["r8", "r10"])
-@pytest.mark.parametrize("planner", sorted(PLANNERS))
-def test_engine_scan_equals_reference(coords, monkeypatch, planner, radii):
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_engine_scan_equals_reference(coords, monkeypatch, route, radii):
     """Every frame's population at every radius, exact; the plan's masks
     are partial on some tiles, and ``mask_bits`` is their popcount."""
-    monkeypatch.setattr(tengine.DensityEngine, "POPS_BIDIR",
-                        PLANNERS[planner])
+    monkeypatch.setattr(tengine.DensityEngine, "POPS_BIDIR", ROUTES[route])
     eng = tengine.DensityEngine(coords, RB, CB, device="cpu")
     got = eng.populations(radii)
     stats = eng.last_stats["populations"]
-    assert stats["plan"] == planner
+    assert stats["mode"] == route
     want = _want(tuple(radii))
     for k, r in enumerate(radii):
         assert np.array_equal(got[r], want[k]), r
-    _, _, _, rmask = eng.pops_plan(radii, PLANNERS[planner])
+    _, _, _, rmask = eng.pops_plan(radii, ROUTES[route])
     full = (1 << len(radii)) - 1
     rm = rmask.numpy()
     assert ((rm != 0) & (rm != full)).any() and (rm == full).any()
