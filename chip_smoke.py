@@ -417,7 +417,7 @@ def phase_kernels(torch):
     # nearest neighbours: the band pass's tile lists in Morton order, the
     # upper-triangular closure and the band itself
     counts = want[0, :n].cpu().numpy() + 1  # the engine's self count
-    order, _ = eng._padded(name)
+    order = eng._layout(name)
     pops = np.empty(n, np.int64)
     pops[order] = counts
     fe = free_energies(pops)
@@ -459,7 +459,7 @@ def phase_kernels(torch):
 
     # the dense-grid kernels on the Morton layout: radius skip words for
     # the counts; band words, then the band's bound words, for NN
-    _, padded = eng._padded("morton")
+    padded = eng.coords_t("morton").T.cpu().numpy()
     nrb, ncb = eng.n_pad // rb, eng.n_pad // cb
     words = put(pruning.radius_skip_words(padded, rb, cb, r2.item())[0])
     hold(torch, "pops_tiles", kept_cells(words, nrb, ncb),
@@ -1522,7 +1522,7 @@ def finish_ab(eng, pops, order_name):
     native pass and the numpy scatter + cast, in turns native, numpy,
     numpy, native, each equal to ``pops``. Returns {finish: [s, s]}."""
     from clustering_tpu_torch.ops import engine
-    order = eng._padded(order_name)[0]
+    order = eng._layout(order_name)
     counts = np.zeros((1, eng.n_pad), dtype=np.int32)
     counts[0, :eng.n] = pops[order]
     native = engine.textio_native.pops_finish

@@ -3,9 +3,10 @@
 Counterpart of ``clustering_tpu/ops/engine.py`` on its single-chip paths:
 tile sweeps over bbox-pruned tile lists, either upper-triangular
 (bidirectional kernels: each unordered pair evaluated once, serving both
-frames) or symmetric (row-side kernels over both orientations). The frame
-matrix is uploaded once per layout; the bbox distances are computed on
-the device and thresholded there. Every stage keeps its masks and tile
+frames) or symmetric (row-side kernels over both orientations). The
+frames are uploaded once; each layout's order is sorted, and its frame
+matrix gathered, on the device; the bbox distances are computed on the
+device and thresholded there. Every stage keeps its masks and tile
 lists on the device (``pruning.*_device``) on both routes: the route
 decides only whether the plane is restricted to the upper triangle (or
 closed, ``bidir_closure_device``) and which kernel sweeps the list.
@@ -264,7 +265,7 @@ class DensityEngine:
         self.n, self.d = self.coords.shape
         block = int(np.lcm(row_block, col_block))
         self.n_pad = -(-self.n // block) * block
-        self._orders = {}   # name -> (order or None, padded host (N_pad, D))
+        self._orders = {}   # name -> host frame order of a built layout
         self._dev = {}      # cached device tensors
         self.last_stats = {}
         # the NN band pass started by populations(nn_band_radius=...)
@@ -274,39 +275,51 @@ class DensityEngine:
 
     # -- cached layouts ------------------------------------------------------
 
-    def _padded(self, name):
-        """(order, padded) for layout ``name``: 'orig' (the frames as
-        given), 'dim0' (stable sort by the first coordinate) or 'morton';
-        pads at 3e38. Built once, in a ``layout.sort.<name>`` span."""
-        if name not in self._orders:
-            with span("layout.sort." + name):
-                self._orders[name] = self._sorted(name)
+    def _layout(self, name):
+        """The host frame order of layout ``name`` ((N,) int64: position
+        -> original id): 'orig' (the frames as given), 'dim0' (stable sort
+        by the first coordinate) or 'morton'; the layout is built on the
+        device once (:meth:`_build_layouts`)."""
+        self._build_layouts((name,))
         return self._orders[name]
 
     def layout_order(self, name):
         """The frame order of layout ``name`` if it is built, else None;
         builds nothing (the layouts are built on the stages' thread)."""
-        built = self._orders.get(name)
-        return None if built is None else built[0]
+        return self._orders.get(name)
 
-    def _sorted(self, name):
-        """(order, padded) of layout ``name``, built."""
-        if name == "orig":
-            order = np.arange(self.n)
-        elif name == "dim0":
-            order = np.argsort(self.coords[:, 0], kind="stable")
-        elif name == "morton":
-            native = textio_native.morton_order_pad(self.coords,
-                                                    n_pad=self.n_pad)
-            if native is not None:
-                return native
-            order = pruning.morton_order(self.coords)
-        else:
-            raise ValueError(name)
-        padded = np.full((self.n_pad, self.d), np.float32(3e38),
-                         dtype=np.float32)
-        padded[:self.n] = self.coords[order]
-        return order, padded
+    def _build_layouts(self, names):
+        """Build the layouts of ``names`` that are not built yet, on the
+        engine's device from one upload of the frames (a
+        ``layout.upload.frames`` span): each one's frame order, sorted there
+        and downloaded once (a ``layout.sort.<name>`` span, its counter
+        ``on_device`` 1 on a CUDA device), then its (D, N_pad) float32
+        frame matrix (pads 3e38) gathered there (a ``layout.upload.<name>``
+        span). The upload, the keys and the sort buffers are freed on
+        return."""
+        names = [name for name in names if name not in self._orders]
+        if not names:
+            return
+        with span("layout.upload.frames"):
+            frames = self._put(self.coords)
+        sort = {"orig": lambda f: torch.arange(self.n, device=f.device),
+                "dim0": pruning.dim0_order_device,
+                "morton": pruning.morton_order_device}
+        for name in names:
+            if name not in sort:
+                raise ValueError(name)
+            with span("layout.sort." + name, on_device=int(frames.is_cuda)):
+                order = sort[name](frames)
+                order_host = order.cpu().numpy()
+            with span("layout.upload." + name):
+                coords_t = torch.full((self.d, self.n_pad), 3e38,
+                                      dtype=torch.float32, device=self.device)
+                for k in range(self.d):
+                    torch.index_select(frames[:, k], 0, order,
+                                       out=coords_t[k, :self.n])
+            del order  # before the next layout's sort
+            self._dev[("ct", name)] = coords_t
+            self._orders[name] = order_host
 
     def _cached(self, key, make):
         if key not in self._dev:
@@ -318,19 +331,17 @@ class DensityEngine:
 
     def coords_t(self, name):
         """(D, N_pad) float32 frame matrix of layout ``name`` on device
-        (its upload: a ``layout.upload.<name>`` span)."""
-        def make():
-            padded = self._padded(name)[1]
-            with span("layout.upload." + name):
-                return self._put(padded.T)
-        return self._cached(("ct", name), make)
+        (pads 3e38)."""
+        self._build_layouts((name,))
+        return self._dev[("ct", name)]
 
     def oid(self, name):
-        """(N_pad,) int32 original ids of layout ``name`` (pads IMAX)."""
+        """(N_pad,) int32 original ids of layout ``name`` (pads IMAX), put
+        on the device at first use: built with the layout, the ids would
+        lie beside the bbox matrices at the peak of ``populations.plan``."""
         def make():
-            order, _ = self._padded(name)
             oid = np.full(self.n_pad, kernels.IMAX, dtype=np.int32)
-            oid[:self.n] = order
+            oid[:self.n] = self._layout(name)
             return self._put(oid)
         return self._cached(("oid", name), make)
 
@@ -352,8 +363,9 @@ class DensityEngine:
 
     def _best_sort(self, thresh2):
         """The layout (dim0 or morton) that prunes more tiles at this
-        threshold; dim0 on ties. Both skip counts come back in one
-        fetch."""
+        threshold; dim0 on ties. Both layouts are built from one upload;
+        both skip counts come back in one fetch."""
+        self._build_layouts(("dim0", "morton"))
         skip = torch.stack([(self.d2b(name) > float(thresh2)).sum()
                             for name in ("dim0", "morton")]).tolist()
         return "morton" if skip[1] > skip[0] else "dim0"
@@ -514,7 +526,7 @@ class DensityEngine:
         stats["t_sweep"] = sweep.seconds + download.seconds
         with span("populations.finish") as finish:
             out, stats["finish"] = self._pops_finish(
-                counts, self._padded(name)[0], radii)
+                counts, self._layout(name), radii)
         stats["t_finish"] = finish.seconds
         self.last_stats["populations"] = stats
         return out
@@ -547,7 +559,7 @@ class DensityEngine:
     TIER_QS_DEFAULT = (0.5, 0.9, 0.99)
 
     def _fe_layout(self, fe, name):
-        order, _ = self._padded(name)
+        order = self._layout(name)
         fe_pad = np.full(self.n_pad, np.inf, dtype=np.float32)
         fe_pad[:self.n] = fe[order]
         return self._put(fe_pad)
@@ -897,7 +909,7 @@ class DensityEngine:
                     and pf["band_blocks"] == band_blocks
                     and pf["bidir"] == bidir
                     and np.array_equal(pf["fe_band"],
-                                       fe[self._padded(order_name)[0]])):
+                                       fe[self._layout(order_name)])):
                 pf = None
             if banded:
                 if pf is None:

@@ -20,7 +20,11 @@ both planners on the same masks at 2^20 and 2^24). The numpy planners
 :func:`bidir_closure`, :func:`upper_mask`) stay as the reference the
 tests hold the device planners and the JAX package against; no engine
 stage calls them, and only the skip-word planners of the dense-grid
-library functions plan on the host. Not ported from the JAX package:
+library functions plan on the host. The density engine's layout orders
+are sorted on its device as well (:func:`dim0_order_device`,
+:func:`morton_order_device`, element for element the host sorts);
+:func:`morton_order` stays their reference and the screener's order when
+none is handed in. Not ported from the JAX package:
 
 - ``window_counts_device`` and the column windows of
   ``tile_list_device``: windows bound the Pallas kernels' VMEM
@@ -66,6 +70,56 @@ def morton_order(coords):
             key |= ((q[:, k] >> np.uint64(b)) & np.uint64(1)) \
                 << np.uint64(b * d + k)
     return np.argsort(key, kind="stable")
+
+
+def dim0_order_device(frames):
+    """The dim0 layout's frame order of the (N, D) float32 tensor
+    ``frames``, on its device: the stable argsort of the first coordinate,
+    ``np.argsort(frames[:, 0], kind="stable")`` element for element. The
+    key is canonicalised so that -0.0 and +0.0 tie, as numpy compares
+    them (a radix sort would order them by their sign bit)."""
+    x = frames[:, 0]
+    return torch.argsort(torch.where(x == 0, 0.0, x), stable=True)
+
+
+def _byte_spread(d, bits):
+    """(256,) int64: each byte value with its bit i moved to bit i * d,
+    for the bits i < min(8, bits) that a quantised coordinate holds."""
+    return [sum(((v >> i) & 1) << (i * d) for i in range(min(8, bits)))
+            for v in range(256)]
+
+
+def morton_order_device(frames):
+    """The Morton layout's frame order of the (N, D) float32 tensor
+    ``frames``, on its device: :func:`morton_order`'s keys step for step
+    (float64 quantisation truncated to an integer, bit ``b`` of coordinate
+    ``k`` at ``b * D + k``, bits at 64 and above dropped as numpy's uint64
+    shifts drop them), stably sorted, so the order is
+    :func:`morton_order`'s element for element. One coordinate at a time,
+    each byte of it spread by a table: a few dozen ops whatever N, and no
+    temporary larger than one (N,) column of float64."""
+    n, d = frames.shape
+    dev = frames.device
+    bits = max(1, 62 // d)
+    lo = frames.amin(dim=0).double()
+    span = frames.amax(dim=0).double() - lo
+    span = torch.where(span == 0, 1.0, span)
+    scale = float((1 << bits) - 1)
+    spread = torch.tensor(_byte_spread(d, bits), dtype=torch.int64,
+                          device=dev)
+    imin = torch.iinfo(torch.int64).min
+    keys = torch.zeros(n, dtype=torch.int64, device=dev)
+    for k in range(min(d, 64)):
+        q = frames[:, k].double().sub_(lo[k]).div_(span[k]).mul_(scale)
+        q = q.long().bitwise_and_((1 << bits) - 1)
+        for j in range(0, bits, 8):
+            part = spread[(q >> j).bitwise_and_(255)]
+            shift = j * d + k
+            # bit 63 is the sign bit: the flip below makes the int64
+            # order of the keys their uint64 order
+            keys.bitwise_or_(part.bitwise_left_shift_(shift) if shift < 63
+                             else part.mul_(imin))
+    return torch.argsort(keys.bitwise_xor_(imin), stable=True)
 
 
 def block_bboxes(coords, block):

@@ -338,14 +338,12 @@ def format_nn(nh_idx, nh_dist, hd_idx, hd_dist):
                        len(a), 96)
 
 
-def morton_order_pad(coords, n_pad=None):
-    """Morton frame order (and optionally the permuted padded layout) in
-    one native pass -- bit-identical to ops/pruning.py::morton_order
-    (float64 quantization, stable sort; equality fuzz-pinned in
-    tests/test_io.py). Returns ``order`` (int64 (n,)) when ``n_pad`` is
-    None, else ``(order, padded)`` with padded an (n_pad, d) float32
-    whose pad rows carry 3e38. None when the native library is
-    unavailable/stale -- callers keep the numpy path."""
+def morton_order_pad(coords):
+    """Morton frame order (int64 (n,)) in one native pass -- bit-identical
+    to ops/pruning.py::morton_order (float64 quantization, stable sort;
+    equality fuzz-pinned in tests/test_io.py); the native function's
+    padded layout is not asked for (null). None when the native library
+    is unavailable/stale -- callers keep the numpy path."""
     lib = _load()
     if lib is None or not hasattr(lib, "morton_order_pad"):
         return None
@@ -354,15 +352,6 @@ def morton_order_pad(coords, n_pad=None):
     c = np.ascontiguousarray(coords, dtype=np.float32)
     n, d = c.shape
     order = np.empty(n, dtype=np.int64)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    if n_pad is None:
-        rc = fn(c.ctypes.data_as(f32p), _LL(n), ctypes.c_int(d), _LL(n),
-                order.ctypes.data_as(_I64P), None)
-        return order if rc == 0 else None
-    padded = np.empty((int(n_pad), d), dtype=np.float32)
-    rc = fn(c.ctypes.data_as(f32p), _LL(n), ctypes.c_int(d),
-            _LL(int(n_pad)), order.ctypes.data_as(_I64P),
-            padded.ctypes.data_as(f32p))
-    if rc != 0:
-        return None
-    return order, padded
+    rc = fn(c.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), _LL(n),
+            ctypes.c_int(d), _LL(n), order.ctypes.data_as(_I64P), None)
+    return order if rc == 0 else None

@@ -133,7 +133,7 @@ def test_engine_layouts_equal_reference(d):
     je = jengine.DensityEngine(coords, RB, CB, backend="pallas")
     assert te.n_pad == je.n_pad
     for name in ("dim0", "morton"):
-        t_order, t_pad = te._padded(name)
+        t_order, t_pad = te._layout(name), te.coords_t(name).numpy().T
         j_order, j_pad = je._padded(name)
         np.testing.assert_array_equal(t_order, j_order)
         np.testing.assert_array_equal(t_pad, j_pad)

@@ -42,7 +42,7 @@ def test_series_order_is_the_band_morton_lexsort(n, n_thresholds,
     if handed_in:
         eng = tengine.DensityEngine(coords, RB, CB, device="cpu")
         assert eng.layout_order("morton") is None
-        eng._padded("morton")
+        eng._layout("morton")
         morton_order = eng.layout_order("morton")
         np.testing.assert_array_equal(morton_order, mo)
     series = tscreening.ThresholdSeriesScreener(

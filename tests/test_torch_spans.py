@@ -125,6 +125,7 @@ TREE = [
     ("populations", None, MAIN),
     ("populations.plan", "populations", MAIN),
     ("populations.best_sort", "populations.plan", MAIN),
+    ("layout.upload.frames", "populations.best_sort", MAIN),
     ("layout.sort.dim0", "populations.best_sort", MAIN),
     ("layout.upload.dim0", "populations.best_sort", MAIN),
     ("layout.bbox.dim0", "populations.best_sort", MAIN),
@@ -178,6 +179,23 @@ def test_cli_screener_takes_the_engines_morton_order(all_spans):
     builds = _named(all_spans, "screener.build")
     assert len(builds) == 1
     assert builds[0]["counters"]["morton_reused"] == 1
+
+
+@pytest.mark.parametrize("name", ["dim0", "morton"])
+def test_cli_layout_sorts_count_where_they_ran(cli_spans, name):
+    """The populations stage builds each layout once, inside
+    ``populations.best_sort``, from one upload of the frames that comes
+    first; the sort's ``on_device`` counter reads 0 on the CPU (1 where
+    torch sorted on a CUDA device)."""
+    sorts = _named(cli_spans, "layout.sort." + name)
+    assert len(sorts) == 1
+    s = sorts[0]
+    assert _parent_name(cli_spans, s) == "populations.best_sort"
+    assert s["counters"] == {"on_device": 0}
+    best = _named(cli_spans, "populations.best_sort")[0]
+    assert best["start_ns"] <= s["start_ns"] <= s["end_ns"] <= best["end_ns"]
+    up, = _named(cli_spans, "layout.upload.frames")
+    assert up["end_ns"] <= s["start_ns"]
 
 
 def test_warm_threads_hold_only_the_warms(all_spans):
