@@ -121,8 +121,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      both routes: populations, nn ids, nn distances (bit for bit) and the
      four clusterings equal to phase 6's run of the route, NN's phase 2
      its mode (the row-side route stays block-bound on a mesh), each
-     stage's shares summing to phase 6's tiles and balanced within one,
-     and the route's kernels launched once per device per call with a
+     stage's shares (each device's own row blocks) summing to phase 6's
+     tiles, and the route's kernels launched once per device per call with a
      non-empty share, no other; (b) run right after phase 8 on phase 5's
      recorded calls: ``pops_bidir``, ``nn_bidir`` and ``label_min_bidir``
      on share 1 of 2 of each call's list against their plain versions
@@ -1780,7 +1780,7 @@ def phase_mesh(torch, runs, tmp, smi):
                     fail(f"{tag}: {name} launched on rank {rank}")
         for stage, total in want_tiles.items():
             shares = [meta["shares"][stage] for _, meta in ranks]
-            if sum(shares) != total or max(shares) - min(shares) > 1:
+            if sum(shares) != total:
                 fail(f"{tag}: {stage} shares {shares} do not split its"
                      f" {total} tiles")
         print(f"{tag}: populations, nn ids, nn distances (bit for bit) and"
@@ -2065,7 +2065,8 @@ def phase_unpruned(torch, smi):
 # turns with the one device (1: no mesh) in the same state of the process
 LOCAL_SIZES = (2, 4)
 LOCAL_TURNS = (1, 2, 4, 1)
-# the per-tile arguments of each bidirectional wrapper, dealt into shares
+# the per-tile arguments of each bidirectional wrapper (ti first), dealt
+# into shares
 PER_TILE = {"pops_bidir": (3, 4, 5), "nn_bidir": (4, 5),
             "label_min_bidir": (4, 5, 6)}
 
@@ -2073,18 +2074,17 @@ PER_TILE = {"pops_bidir": (3, 4, 5), "nn_bidir": (4, 5),
 def phase_share_holds(torch, calls, smi):
     """Phase 12 (b), run right after phase 8 on the calls phase 5 recorded:
     each bidirectional kernel on share 1 of 2 of every call's tile list
-    (``pruning.split_tiles_balanced``, as a local mesh of two deals it)
+    (the tiles of the odd row blocks, as a local mesh of two deals them)
     against its plain version on the same inputs, exact."""
-    from clustering_tpu_torch.ops import kernels, pruning
+    from clustering_tpu_torch.ops import kernels
     held = {}
     for name in BIDIR_KERNELS:
         rec = []
         for args, kw in calls[name]:
             args = list(args)
-            share = pruning.split_tiles_balanced(
-                tuple(args[i] for i in PER_TILE[name]), 1, 2)
-            for i, t in zip(PER_TILE[name], share):
-                args[i] = t
+            odd = args[PER_TILE[name][0]] % 2 == 1
+            for i in PER_TILE[name]:
+                args[i] = args[i][odd].contiguous()
             rec.append((tuple(args), kw))
         got, ms = replay(torch, name, getattr(kernels, name), rec)
         want, plain_ms = replay(torch, name,
@@ -2196,8 +2196,7 @@ def phase_local_mesh(torch, runs, smi):
                      f" {want_nn['mode']}")
             for stage, total in want_tiles.items():
                 got = shares[stage]
-                if (len(got) != k or sum(got) != total
-                        or max(got) - min(got) > 1):
+                if len(got) != k or sum(got) != total:
                     fail(f"{tag}: {stage} shares {got} do not split its"
                          f" {total} tiles over {k} devices")
             want = dict(mesh_launches(on, st), **{name: 0 for name in off})

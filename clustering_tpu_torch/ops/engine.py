@@ -11,17 +11,22 @@ lists on the device (``pruning.*_device``) on both routes: the route
 decides only whether the plane is restricted to the upper triangle (or
 closed, ``bidir_closure_device``) and which kernel sweeps the list.
 
-With a mesh (``parallel.mesh``), each list is dealt round-robin over the
-mesh's devices (``pruning.split_tiles_balanced``) and each device sweeps
-its share on copies of its own of the layout; the partial counts merge by
-a SUM, the NN keys by a MIN after each pass (the counterpart of the JAX
-engine's ``_pops_dispatch_mesh`` and ``_nn_dispatch_mesh``). This process
-plans once on the primary device, launches each of its devices' shares,
-then merges them there; on a process group's mesh every rank plans the
-same lists, sweeps the shares of its own devices (one or several, dealt
-by global device index) and adds an ``all_reduce`` of its merged part.
-Either way the caller holds the whole result. Without a mesh the engine
-runs the same code over one device.
+With a mesh (``parallel.mesh``), the row blocks are dealt over the mesh's
+devices (``row_deals``: device g of S owns blocks g, g + S, ...), and
+each device plans the bounds, planes and tile list of its own rows on
+copies of its own of the layout, then sweeps that list; the partial
+counts merge by a SUM, the NN keys by a MIN after each pass (the
+counterpart of the JAX engine's ``_pops_dispatch_mesh`` and
+``_nn_dispatch_mesh``). The one choice that reads every row, the
+layout with more skipped tiles, sums the devices' counts; a
+bidirectional closure ORs the devices' column-block groups
+(``pruning.group_rows_device``). This process plans and launches each
+of its devices' rows, then merges the partials on its primary device;
+on a process group's mesh every rank does so for its own devices (one or
+several, by global device index) and adds an ``all_reduce`` of its
+merged part. Either way the caller holds the whole result, bit for bit
+one device's. Without a mesh the engine runs the same code over one
+device, which plans every row.
 """
 
 import contextlib
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..parallel.mesh import LocalMesh, Mesh, rank_devices
+from ..parallel.mesh import LocalMesh, Mesh, planning, rank_devices, skew
 from ..utils import textio_native
 from ..utils.logger import is_verbose, logger
 from ..utils.timer import adopt, count, current, span
@@ -190,17 +195,16 @@ def _tiered_rows(coords_t, fe_w, oid_w, tier_w, taus, perm, row_block,
             oid_w[perm].contiguous(), bound)
 
 
-def _tiered_layout_sym(coords_t, fe_w, oid_w, tier_w, taus, perm, row_block,
-                       col_block, n_tiers):
-    """The bidirectional tiered phase 2's layout: every frame re-sorted by
-    (tier, position), rows and columns alike, so that the upper-triangular
-    sweep composes with the tier bounds. Returns the permuted (coords_t,
-    fe, oid) and the active mask (bbox distance within the row block's
-    bound) on the device; the caller closes it (``bidir_closure``)."""
-    rows_t, fe_r, oid_r, bound = _tiered_rows(
-        coords_t, fe_w, oid_w, tier_w, taus, perm, row_block, n_tiers)
-    active = pruning.bbox_d2(rows_t, row_block, col_block) <= bound[:, None]
-    return rows_t, fe_r, oid_r, active
+def _tier_active(rows_t, bound, row_block, col_block, rows=None):
+    """The bidirectional tiered phase 2's active mask for the row blocks of
+    the deal ``rows`` (None: all): bbox distance within the row block's
+    ``bound``, in the layout ``rows_t`` of :func:`_tiered_rows` (every
+    frame re-sorted by (tier, position), rows and columns alike, so that
+    the upper-triangular sweep composes with the tier bounds); the caller
+    closes it (``bidir_closure``)."""
+    return pruning.le_rows_device(
+        pruning.bbox_d2(rows_t, row_block, col_block, rows=rows),
+        pruning.dealt(bound, rows).to(rows_t.device))
 
 
 def _tiered_layout(coords_t, fe_w, oid_w, tier_w, taus, perm, row_block,
@@ -259,6 +263,9 @@ class DensityEngine:
         self.mesh = mesh
         # the devices the sweeps run on: one without a mesh
         self._spread = LocalMesh((self.device,)) if mesh is None else mesh
+        # each device and the row blocks it plans (None: all of them)
+        self._deals = ([(self.device, None)] if mesh is None
+                       else mesh.row_deals())
         self.row_block = row_block
         self.col_block = col_block
         self.coords = np.ascontiguousarray(coords, dtype=np.float32)
@@ -351,24 +358,71 @@ class DensityEngine:
         return self._cached((fn.__name__ + "*", name),
                             lambda: self._spread.copies(fn(name)))
 
-    def d2b(self, name):
-        """(nrb, ncb) bbox distance lower bounds of layout ``name`` (a
-        ``layout.bbox.<name>`` span)."""
+    def d2b(self, name, part=0):
+        """(rows, ncb) bbox distance lower bounds of layout ``name`` for the
+        row blocks of deal ``part`` (without a mesh: all, (nrb, ncb)), on
+        its device. The deals' matrices are built together, each from its
+        device's copy of the layout, in a ``layout.bbox.<name>`` span."""
         def make():
-            coords_t = self.coords_t(name)
+            cts = ([self.coords_t(name)] if self.mesh is None
+                   else self._layout_copies(self.coords_t, name))
             with span("layout.bbox." + name):
-                return pruning.bbox_d2(coords_t, self.row_block,
-                                       self.col_block)
-        return self._cached(("d2b", name), make)
+                return [pruning.bbox_d2(ct, self.row_block, self.col_block,
+                                        rows=rows)
+                        for ct, (_, rows) in zip(cts, self._deals)]
+        return self._cached(("d2b", name), make)[part]
+
+    def _total(self, values):
+        """The sum of device tensors of one shape, one per deal, on the
+        engine's device, over every rank of a group's mesh (the tensor
+        itself without a mesh)."""
+        out = values[0]
+        for v in values[1:]:
+            out = out + v.to(self.device)
+        return self._spread.sum_ranks(out)
+
+    def _dealt(self, t, part):
+        """The entries of the per-row-block tensor ``t`` (on the engine's
+        device) that deal ``part`` holds, on its device."""
+        dev, rows = self._deals[part]
+        return pruning.dealt(t, rows).to(dev)
+
+    def _parts(self):
+        return range(len(self._deals))
 
     def _best_sort(self, thresh2):
         """The layout (dim0 or morton) that prunes more tiles at this
         threshold; dim0 on ties. Both layouts are built from one upload;
-        both skip counts come back in one fetch."""
+        the skip counts, summed over the deals, come back in one fetch."""
         self._build_layouts(("dim0", "morton"))
-        skip = torch.stack([(self.d2b(name) > float(thresh2)).sum()
-                            for name in ("dim0", "morton")]).tolist()
+        with planning(self.mesh):
+            skip = self._total([torch.stack([
+                (self.d2b(name, k) > float(thresh2)).sum()
+                for name in ("dim0", "morton")])
+                for k in self._parts()]).tolist()
         return "morton" if skip[1] > skip[0] else "dim0"
+
+    def _closures(self, actives):
+        """:func:`pruning.bidir_closure_device` of the mask whose deals are
+        ``actives`` (one per deal, each on its device): without a mesh the
+        closure of the whole; on a mesh each deal's rows closed on its
+        device, from the sum of every deal's column-block groups."""
+        rb, cb = self.row_block, self.col_block
+        if self.mesh is None:
+            # one device keeps the whole mask's closure, op for op: the
+            # deals' gather of the mirror would add a (nrb, ncb) plane
+            return [pruning.bidir_closure_device(actives[0], rb, cb)]
+        groups = self._spread.copies(self._spread.sum([
+            pruning.group_rows_device(a, rows, rb, cb)
+            for a, (_, rows) in zip(actives, self._deals)]) > 0)
+        return [pruning.closure_rows_device(a, g, rows, rb, cb)
+                for a, g, (_, rows) in zip(actives, groups, self._deals)]
+
+    def _tile_lists(self, actives):
+        """Each deal's tile list of its mask (``pruning.tile_list_device``
+        with global row blocks), or None."""
+        return [pruning.tile_list_device(a, rows)
+                for a, (_, rows) in zip(actives, self._deals)]
 
     def _stats(self, bidir, key="mode"):
         """A stage's ``last_stats`` start: its route under ``key``, its
@@ -379,20 +433,29 @@ class DensityEngine:
         return {key: route + "-mesh", "plan": "device",
                 "mesh_devices": self.mesh.size}
 
-    def _shares(self, tiles, stats, stage=None):
-        """[(device, its share of the per-tile tensors ``tiles``)], one
-        entry per device this process sweeps on (all of ``tiles`` without
-        a mesh). On a mesh the share sizes go to
-        ``stats["per_device_tiles"]`` (``[stage]`` if given)."""
-        shares = self._spread.shares(tiles)
-        if self.mesh is not None:
-            counts = per_device_tiles(self.mesh,
-                                      [len(s[0]) for _, s in shares])
-            if stage is None:
-                stats["per_device_tiles"] = counts
-            else:
-                stats["per_device_tiles"][stage] = counts
-        return shares
+    def _share_stats(self, counts, everyone, stats, stage=None):
+        """On a mesh: the deals' tile counts ``counts`` to
+        ``stats["per_device_tiles"]`` (``[stage]`` if given), and the most
+        tiles one device of the mesh sweeps over their mean (``everyone``:
+        every device's count, ``all_counts``) to the innermost open span's
+        ``tiles_max_over_mean``."""
+        if self.mesh is None:
+            return
+        shares = per_device_tiles(self.mesh, counts)
+        if stage is None:
+            stats["per_device_tiles"] = shares
+        else:
+            stats["per_device_tiles"][stage] = shares
+        ratio = skew(everyone)
+        if ratio is not None:
+            count("tiles_max_over_mean", ratio)
+
+    def _tile_counts(self, lists):
+        """(each deal's tiles, every device's tiles over the mesh's ranks)
+        of the lists (or None) of this process's deals: the second is what
+        every rank decides on alike."""
+        counts = [0 if t is None else len(t[0]) for t in lists]
+        return counts, self._spread.all_counts(counts)
 
     def _log_stats(self, stage, tiles, what=""):
         if is_verbose() and not self._quiet:
@@ -406,42 +469,70 @@ class DensityEngine:
     def pops_plan(self, radii, bidir=True, stats=None):
         """Layout name, tile list and per-tile radius masks of a
         populations sweep: (name, ti, tj, rmask), int32 tensors on the
-        device. The list is the active plane at the largest radius,
-        restricted to the upper triangle when ``bidir``, planned on the
-        device either way. ``stats``, if given, receives ``t_best_sort``:
-        the seconds spent choosing the layout (its frame order, upload,
-        bbox matrix and skip counts), the
+        device, of the first deal (every row without a mesh;
+        :meth:`_pops_plans` gives each deal's). The list is the active
+        plane at the largest radius, restricted to the upper triangle when
+        ``bidir``, planned on the device either way. ``stats``, if given,
+        receives ``t_best_sort``: the seconds spent choosing the layout
+        (its frame order, upload, bbox matrix and skip counts), the
         ``populations.best_sort`` span's; and ``mask_bits``, the bits set
         in the masks (the (tile, radius) pairs swept) as a tensor on the
         device, with the ``populations.radius_masks`` span under
         ``radius_masks``, which :meth:`populations` counts it on once its
         download has drained the stream."""
+        name, plans = self._pops_plans(radii, bidir, stats)
+        return (name,) + plans[0]
+
+    def _pops_plans(self, radii, bidir, stats):
+        """(name, [(ti, tj, rmask) of each deal, on its device]): the plan
+        of :meth:`pops_plan` for every deal."""
         r_max2 = np.float32(max(radii)) * np.float32(max(radii))
         with span("populations.best_sort") as best:
             name = self._best_sort(r_max2)
         if stats is not None:
             stats["t_best_sort"] = best.seconds
-        rb, cb = self.row_block, self.col_block
         thresh2s = [r_max2] + [np.float32(r) * np.float32(r) for r in radii]
         # the k + 1 threshold planes, the largest radius's tile list (its
         # count is the plan's host sync) and the masks gathered from it
-        with span("populations.radius_masks", radii=len(radii)) as masks:
-            planes = pruning.le_planes_device(self.d2b(name), thresh2s)
-            # the upper-triangle plane is a temporary: it must not stay
-            # alive through the gather (0.19 GB at 10^7 frames)
-            tiles = pruning.tile_list_device(
-                pruning.upper_tri_device(planes[0], rb, cb) if bidir
-                else planes[0])
-            if tiles is None:
-                ti = tj = rmask = torch.zeros(0, dtype=torch.int32,
-                                              device=self.device)
-            else:
-                ti, tj = tiles
-                rmask = pruning.rmask_gather_device(planes[1:], ti, tj)
+        with span("populations.radius_masks", radii=len(radii)) as masks, \
+                planning(self.mesh):
+            plans = [self._pops_deal(name, thresh2s, bidir, k)
+                     for k in self._parts()]
         if stats is not None:
-            stats["mask_bits"] = pruning.mask_bits(rmask, len(radii))
+            stats["mask_bits"] = self._total([
+                pruning.mask_bits(p[2], len(radii)) for p in plans])
             stats["radius_masks"] = masks
-        return name, ti, tj, rmask
+        return name, plans
+
+    def _pops_deal(self, name, thresh2s, bidir, part):
+        """(ti, tj, rmask) of deal ``part`` (:meth:`_pops_plans`)."""
+        rb, cb = self.row_block, self.col_block
+        dev, rows = self._deals[part]
+        planes = pruning.le_planes_device(self.d2b(name, part), thresh2s)
+        # the upper-triangle plane is a temporary: it must not stay
+        # alive through the gather (0.19 GB at 10^7 frames)
+        tiles = pruning.tile_list_device(
+            pruning.upper_tri_device(planes[0], rb, cb, rows) if bidir
+            else planes[0], rows)
+        if tiles is None:
+            ti = tj = rmask = torch.zeros(0, dtype=torch.int32, device=dev)
+        else:
+            ti, tj = tiles
+            rmask = pruning.rmask_gather_device(
+                planes[1:], pruning.local_rows(ti, rows), tj)
+        return ti, tj, rmask
+
+    def _all_tiles(self, n_radii):
+        """Every tile of each deal's rows, each with all ``n_radii`` radii
+        on: the unpruned plan, [(ti, tj, rmask)]."""
+        plans = []
+        for dev, rows in self._deals:
+            ti, tj = pruning.tile_list_device(torch.ones(
+                (pruning.deal_rows(self.n_pad // self.row_block, rows),
+                 self.n_pad // self.col_block), dtype=torch.bool,
+                device=dev), rows)
+            plans.append((ti, tj, torch.full_like(ti, (1 << n_radii) - 1)))
+        return plans
 
     def populations(self, radii, prune=True, nn_band_radius=None):
         """dict radius -> (N,) int64 populations (self included); the
@@ -474,26 +565,24 @@ class DensityEngine:
         stats = self._stats(bidir)
         with span("populations.plan") as plan:
             if prune:
-                name, ti, tj, rmask = self.pops_plan(radii, bidir, stats)
+                name, plans = self._pops_plans(radii, bidir, stats)
             else:
                 name = "orig"
-                ti, tj = pruning.tile_list_device(torch.ones(
-                    (self.n_pad // self.row_block,
-                     self.n_pad // self.col_block),
-                    dtype=torch.bool, device=self.device))
-                rmask = torch.full_like(ti, (1 << len(radii)) - 1)
+                with planning(self.mesh):
+                    plans = self._all_tiles(len(radii))
             stats["order"] = name
             radii2 = self._put(np.asarray(
                 [np.float32(r) * np.float32(r) for r in radii], np.float32))
-            stats["computed_tiles"] = int(len(ti))
-            shares = self._shares((ti, tj, rmask), stats)
+            deal_tiles, everyone = self._tile_counts(plans)
+            stats["computed_tiles"] = sum(everyone)
         stats["t_plan"] = plan.seconds
         self._log_stats("pops", stats["computed_tiles"])
         with span("populations.sweep", radii=len(radii)) as sweep:
+            self._share_stats(deal_tiles, everyone, stats)
             parts = []
-            for ct, r2, (_, share) in zip(
+            for ct, r2, share in zip(
                     self._layout_copies(self.coords_t, name),
-                    self._spread.copies(radii2), shares):
+                    self._spread.copies(radii2), plans):
                 args = (r2, self.n) + share + (self.row_block,
                                                self.col_block)
                 if bidir:
@@ -568,32 +657,34 @@ class DensityEngine:
         return self.NN_BIDIR and self.col_block % self.row_block == 0
 
     def _planned(self, stats, fn, *args):
-        """``fn(*args)`` in an ``nn.plan`` span, whose seconds are added
-        to ``stats["t_plan"]``."""
-        with span("nn.plan") as plan:
+        """``fn(*args)`` in an ``nn.plan`` span (and on a mesh its
+        ``mesh.plan``), whose seconds are added to ``stats["t_plan"]``."""
+        with span("nn.plan") as plan, planning(self.mesh):
             out = fn(*args)
         stats["t_plan"] += plan.seconds
         return out
 
     def _nn_sweep(self, rows, tiles, keys, bidir, stats, stage, cols=None):
-        """Sweep ``tiles`` (device (ti, tj) or None) -- an upper-triangular
-        closure swept bidirectionally, or any mask's list swept row-side --
-        folding into the id-keyed ``keys``; ``rows`` and ``cols`` hold the
-        (coords_t, fe, oid) tensors of the rows and the columns for each
-        device (``cols`` None: the rows'). Each device folds its share into
-        a copy of ``keys`` of its own, all taken before the first launch,
-        and the copies merge into ``keys`` by a MIN. Sets
-        ``stats[stage + "_tiles"]`` to the list's length, which the
-        enclosing span counts under the same name, and, on a mesh,
-        ``stats["per_device_tiles"][stage]`` to the shares' (both stay 0
-        without a list)."""
-        if tiles is None:
+        """Sweep ``tiles`` (each deal's device (ti, tj) or None) -- an
+        upper-triangular closure swept bidirectionally, or any mask's list
+        swept row-side -- folding into the id-keyed ``keys``; ``rows`` and
+        ``cols`` hold the (coords_t, fe, oid) tensors of the rows and the
+        columns for each device (``cols`` None: the rows'). Each device
+        folds its deal's list into a copy of ``keys`` of its own, all taken
+        before the first launch, and the copies merge into ``keys`` by a
+        MIN. Sets ``stats[stage + "_tiles"]`` to the lists' length, which
+        the enclosing span counts under the same name, and, on a mesh,
+        ``stats["per_device_tiles"][stage]`` to the deals' (both stay 0
+        without a tile)."""
+        counts, everyone = self._tile_counts(tiles)
+        if not sum(everyone):
             return
-        stats[stage + "_tiles"] = len(tiles[0])
-        count(stage + "_tiles", len(tiles[0]))
-        shares = self._shares(tiles, stats, stage)
+        stats[stage + "_tiles"] = sum(everyone)
+        count(stage + "_tiles", sum(everyone))
+        self._share_stats(counts, everyone, stats, stage)
         parts = self._spread.copies(keys)
-        for k, (_, (ti, tj)) in enumerate(shares):
+        for k, ((dev, _), t) in enumerate(zip(self._deals, tiles)):
+            ti, tj = t or (torch.zeros(0, dtype=torch.int32, device=dev),) * 2
             if bidir:
                 kernels.nn_bidir(*rows[k], self.n, ti, tj, parts[k],
                                  self.row_block, self.col_block)
@@ -617,14 +708,20 @@ class DensityEngine:
     def nn_band_mask(self, bidir=True, band_blocks=NN_BAND_BLOCKS):
         """The band pass's tile mask and the mask it sweeps, on the device:
         the band and, when ``bidir``, its upper-triangular closure, else
-        the band itself."""
+        the band itself; of the first deal (every row without a mesh;
+        :meth:`_nn_band_masks` gives each deal's)."""
+        bands, swept = self._nn_band_masks(bidir, band_blocks)
+        return bands[0], swept[0]
+
+    def _nn_band_masks(self, bidir, band_blocks):
+        """(bands, swept): :meth:`nn_band_mask` of each deal, on its
+        device."""
         rb, cb = self.row_block, self.col_block
-        band = pruning.band_mask_device(self.n_pad // rb, self.n_pad // cb,
-                                        rb, cb, band_blocks * cb,
-                                        self.device)
-        if bidir:
-            return band, pruning.bidir_closure_device(band, rb, cb)
-        return band, band
+        bands = [pruning.band_mask_device(self.n_pad // rb, self.n_pad // cb,
+                                          rb, cb, band_blocks * cb, dev,
+                                          rows)
+                 for dev, rows in self._deals]
+        return bands, self._closures(bands) if bidir else bands
 
     def _nn_band(self, fe_l, order_name, band_blocks, bidir, stats):
         """Phase 1: the band pass in layout ``order_name`` (``fe_l``: its
@@ -639,12 +736,11 @@ class DensityEngine:
         rb = self.row_block
         nrb = self.n_pad // rb
         keys = kernels.nn_keys_init(self.n_pad, self.device)
-        band, band_eff = self._planned(stats, self.nn_band_mask, bidir,
-                                       band_blocks)
+        bands, band_eff = self._planned(stats, self._nn_band_masks, bidir,
+                                        band_blocks)
         self._nn_sweep(self._nn_rows(order_name, fe_l),
-                       self._planned(stats, pruning.tile_list_device,
-                                     band_eff), keys,
-                       bidir, stats, "band")
+                       self._planned(stats, self._tile_lists, band_eff),
+                       keys, bidir, stats, "band")
         del band_eff
         d_band, _ = kernels.unpack_keys(keys[:, :self.n])
         ub_oid = d_band.amax(dim=0)
@@ -654,11 +750,15 @@ class DensityEngine:
             ub = torch.full((self.n_pad,), float("inf"), device=self.device)
             ub[:self.n] = ub_oid[oid[:self.n]]
             row_ub = ub.reshape(nrb, rb).amax(dim=1)
-            act = self.d2b(name) <= row_ub[:, None]
-            if name == order_name:
-                act = act & ~band
+            with planning(self.mesh):
+                act = [pruning.le_rows_device(self.d2b(name, k),
+                                              self._dealt(row_ub, k))
+                       for k in self._parts()]
+                if name == order_name:
+                    act = [a & ~b for a, b in zip(act, bands)]
             acts.append(act)
-        work = torch.stack([a.sum() for a in acts])
+        work = torch.stack([self._total([a.sum() for a in act])
+                            for act in acts])
         return {"keys": keys, "acts": acts, "work": work}
 
     # -- the band prefetch -----------------------------------------------------
@@ -804,11 +904,11 @@ class DensityEngine:
         distances in ``keys``. Bidirectional: every frame re-sorted, the
         active mask closed upper-triangularly; row-side: only the rows
         re-sorted, against the winner's columns; the list is planned on
-        the device either way. Returns (rows, cols, tiles): the sweep's
-        rows on the engine's device, its columns for each device (None:
-        the rows') and its tile list (or None). ``stats`` receives the
-        tier split: ``tier_frames``, the frames of each tier, and
-        ``taus``."""
+        the device either way, each deal's rows on its device. Returns
+        (rows, cols, tiles): the sweep's rows for each device, its columns
+        for each device (None: the rows') and each deal's tile list (or
+        None). ``stats`` receives the tier split: ``tier_frames``, the
+        frames of each tier, and ``taus``."""
         rb, cb = self.row_block, self.col_block
         n_tiers = len(tier_qs) + 1
         d_band, _ = kernels.unpack_keys(keys)
@@ -818,13 +918,15 @@ class DensityEngine:
             tier_w, minlength=n_tiers + 1)[:n_tiers].tolist()
         stats["taus"] = taus.tolist()
         if bidir:
-            *t_rows, active = _tiered_layout_sym(*rows[0], tier_w, taus,
-                                                 perm, rb, cb, n_tiers)
-            return tuple(t_rows), None, pruning.tile_list_device(
-                pruning.bidir_closure_device(active, rb, cb))
+            *t_rows, bound = _tiered_rows(*rows[0], tier_w, taus, perm, rb,
+                                          n_tiers)
+            t_rows = self._row_copies(t_rows)
+            active = [_tier_active(r[0], bound, rb, cb, deal)
+                      for r, (_, deal) in zip(t_rows, self._deals)]
+            return t_rows, None, self._tile_lists(self._closures(active))
         *t_rows, active = _tiered_layout(*rows[0], tier_w, taus, perm, rb,
                                          cb, n_tiers)
-        return tuple(t_rows), rows, pruning.tile_list_device(active)
+        return [tuple(t_rows)], rows, [pruning.tile_list_device(active)]
 
     def _nn_tier_qs(self, tier_qs, block_tiles, bidir):
         """The quantiles of a tiered plan to try, or None: an explicit
@@ -892,8 +994,7 @@ class DensityEngine:
         stats.update(bidir=bidir, mode="dense", band_prefetched=False,
                      band_tiles=0, phase2_tiles=0, t_plan=0.0)
         if self.mesh is not None:
-            none = per_device_tiles(self.mesh,
-                                    [0] * len(self._spread.devices))
+            none = per_device_tiles(self.mesh, [0] * len(self._deals))
             stats["per_device_tiles"] = {"band": none, "phase2": none}
         banded = prune and ncb > 2 * band_blocks
 
@@ -933,29 +1034,29 @@ class DensityEngine:
         else:
             keys = kernels.nn_keys_init(self.n_pad, self.device)
             name = order_name
-            active = torch.ones((nrb, ncb), dtype=torch.bool,
-                                device=self.device)
-        with span("nn.plan") as plan:
+            active = [torch.ones((pruning.deal_rows(nrb, deal), ncb),
+                                 dtype=torch.bool, device=dev)
+                      for dev, deal in self._deals]
+        with span("nn.plan") as plan, planning(self.mesh):
             if bidir:
-                active = pruning.bidir_closure_device(active, rb, cb)
-            tiles = pruning.tile_list_device(active)
+                active = self._closures(active)
+            tiles = self._tile_lists(active)
             del active
             rows = self._nn_rows(name, self._fe_layout(fe, name))
             cols = None
             if banded:
                 stats["mode"] = "block-bound"
-                block_tiles = 0 if tiles is None else len(tiles[0])
+                block_tiles = sum(self._tile_counts(tiles)[1])
                 qs = self._nn_tier_qs(tier_qs, block_tiles, bidir)
                 if qs is not None:
                     t_rows, t_cols, t_tiles = self._nn_tiered_plan(
                         rows, keys, qs, bidir, stats)
-                    est = 0 if t_tiles is None else len(t_tiles[0])
+                    est = sum(self._tile_counts(t_tiles)[1])
                     saved = (block_tiles - est) * float(rb * cb)
                     if (tier_qs != "auto"
                             or saved > self.TIERED_MIN_SAVED_PAIRS):
                         stats["mode"] = "tiered"
-                        rows, cols, tiles = (self._row_copies(t_rows),
-                                             t_cols, t_tiles)
+                        rows, cols, tiles = t_rows, t_cols, t_tiles
                     del t_rows, t_cols, t_tiles
         stats["t_plan"] += plan.seconds
         with span("nn.phase2") as phase2:

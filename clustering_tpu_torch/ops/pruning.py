@@ -12,10 +12,20 @@ Device planning (the ``*_device`` functions): the same masks as torch
 ops on the tensors' device, and :func:`tile_list_device` compacts them
 there, so no (nrb, ncb) plane crosses to the host; the only host traffic
 is the tile count. They emit the numpy planners' tile sets in the same
-row-major order. The engines plan every stage with them, on both routes
-and at every N: the JAX package gates them at 2^22 padded frames, but on
-the card no size has shown the host plan faster (``chip_smoke.py`` times
-both planners on the same masks at 2^20 and 2^24). The numpy planners
+row-major order. On a mesh each device plans only the row blocks dealt
+to it (``rows``: ``(start, step)``, the blocks ``start, start + step,
+...``): :func:`bbox_d2`, :func:`band_mask_device`,
+:func:`upper_tri_device` and :func:`tile_list_device` take the deal and
+keep global block indices, and :func:`group_rows_device` and
+:func:`closure_rows_device` close a bidirectional mask whose rows lie
+on several devices. No device then holds more than ``ceil(nrb / S)``
+rows of any block-pair matrix; the planners count each matrix they
+allocate on the open ``mesh.plan`` span (``rows_max``,
+``matrix_bytes_max``). The engines plan every stage with them, on both
+routes and at every N: the JAX package gates them at 2^22 padded frames,
+but on the card no size has shown the host plan faster
+(``chip_smoke.py`` times both planners on the same masks at 2^20 and
+2^24). The numpy planners
 (:func:`threshold_planes`, :func:`tile_list`, :func:`band_mask`,
 :func:`bidir_closure`, :func:`upper_mask`) stay as the reference the
 tests hold the device planners and the JAX package against; no engine
@@ -34,9 +44,9 @@ none is handed in. Not ported from the JAX package:
 - the chunk buckets and ``quantize_chunks`` of ``_tile_list_dev_call``:
   they exist for XLA's static shapes, and so do the lists' pads;
 - ``act_rows_bool_device``: one comparison, inlined in the engine;
-- ``tile_list_device_split``: the device list dealt over the mesh, padded
-  to a common XLA shape; here each device's share is a slice of the
-  device list (:func:`split_tiles_balanced`);
+- ``tile_list_device_split`` and ``split_tiles_balanced``: the device
+  list dealt over the mesh, padded to a common XLA shape; here each
+  device plans the list of its own row blocks;
 - ``iter_col_windows``: the column windows, for the reason above.
 
 Pruning is exact: a tile is skipped only when its bounding-box distance
@@ -47,6 +57,10 @@ import numpy as np
 import torch
 
 from ..utils import textio_native
+from ..utils.timer import count_max
+
+# the span that a mesh's per-device planning opens (``parallel.mesh``)
+PLAN_SPAN = "mesh.plan"
 
 
 def morton_order(coords):
@@ -173,15 +187,48 @@ def bbox_dist2(row_mins, row_maxs, col_mins, col_maxs):
     return out
 
 
-def bbox_d2(coords_t, row_block, col_block, cols_t=None):
+def deal_rows(n_rows, rows):
+    """How many of ``n_rows`` row blocks the deal ``rows`` ((start, step);
+    None: all) holds."""
+    return n_rows if rows is None else len(range(rows[0], n_rows, rows[1]))
+
+
+def row_ids(n_dealt, rows, device):
+    """(n_dealt, 1) int64 global indices of the rows of a matrix over the
+    deal ``rows`` (None: 0 .. n_dealt - 1)."""
+    ri = torch.arange(n_dealt, device=device)[:, None]
+    return ri if rows is None else ri * rows[1] + rows[0]
+
+
+def dealt(t, rows):
+    """The entries of the per-row-block tensor ``t`` that the deal ``rows``
+    holds (a view; ``t`` itself for None)."""
+    return t if rows is None else t[rows[0]::rows[1]]
+
+
+def _allocated(matrix):
+    """Count a block-pair matrix (or a stack of them) on the open
+    ``mesh.plan`` span: its rows (``rows_max``) and bytes
+    (``matrix_bytes_max``); nothing without one."""
+    count_max("rows_max", matrix.shape[-2], within=PLAN_SPAN)
+    count_max("matrix_bytes_max", matrix.numel() * matrix.element_size(),
+              within=PLAN_SPAN)
+    return matrix
+
+
+def bbox_d2(coords_t, row_block, col_block, cols_t=None, rows=None):
     """Device counterpart of ``bbox_dist2`` from the (D, N_pad) frame
     matrix: the same per-dimension gap accumulation and downward margin,
     as plain torch ops on the matrix's device. ``cols_t`` (D, M_pad), if
-    given, supplies the column blocks (rows stay ``coords_t``'s)."""
+    given, supplies the column blocks (rows stay ``coords_t``'s);
+    ``rows`` ((start, step)) keeps only the row blocks of that deal, in
+    order, so that the matrix has one row per dealt block."""
     cols_t = coords_t if cols_t is None else cols_t
     n_dim = coords_t.shape[0]
     rblk = coords_t.reshape(n_dim, -1, row_block)
     rmin, rmax = rblk.amin(dim=2), rblk.amax(dim=2)
+    if rows is not None:
+        rmin, rmax = rmin[:, rows[0]::rows[1]], rmax[:, rows[0]::rows[1]]
     cblk = cols_t.reshape(n_dim, -1, col_block)
     cmin, cmax = cblk.amin(dim=2), cblk.amax(dim=2)
     margin = np.float32(1.0 - (n_dim + 8) * 2.0 ** -23)
@@ -193,7 +240,7 @@ def bbox_d2(coords_t, row_block, col_block, cols_t=None):
                             cmin[k][None, :] - rmax[k][:, None])
         gap = gap.clamp_min(0.0)
         acc = acc + gap * gap
-    return torch.clamp(acc, max=big) * float(margin)
+    return _allocated(torch.clamp(acc, max=big) * float(margin))
 
 
 def le_planes_device(d2b, thresh2s, strict=False):
@@ -201,7 +248,13 @@ def le_planes_device(d2b, thresh2s, strict=False):
     d2b's device."""
     t = torch.tensor(np.asarray(thresh2s, dtype=np.float32),
                      device=d2b.device)[:, None, None]
-    return d2b[None] < t if strict else d2b[None] <= t
+    return _allocated(d2b[None] < t if strict else d2b[None] <= t)
+
+
+def le_rows_device(d2b, bound):
+    """(nrb, ncb) bool plane of d2b <= ``bound`` of its row block (one
+    per row of d2b, on its device)."""
+    return _allocated(d2b <= bound[:, None])
 
 
 def threshold_planes(d2b, thresh2s, strict=False):
@@ -250,12 +303,12 @@ def band_mask(n_row_blocks, n_col_blocks, row_block, col_block, half_width):
 
 # -- device planning -----------------------------------------------------------
 
-def upper_tri_device(active, row_block, col_block):
+def upper_tri_device(active, row_block, col_block, rows=None):
     """``active`` restricted to the tiles that intersect the strict upper
-    triangle (:func:`upper_mask`), on its device."""
-    nrb, ncb = active.shape
-    ri = torch.arange(nrb, device=active.device)[:, None]
-    cj = torch.arange(ncb, device=active.device)[None, :]
+    triangle (:func:`upper_mask`), on its device; ``rows``: the deal of
+    row blocks that ``active``'s rows are (None: all of them)."""
+    ri = row_ids(active.shape[0], rows, active.device)
+    cj = torch.arange(active.shape[1], device=active.device)[None, :]
     return active & ((cj + 1) * col_block > ri * row_block)
 
 
@@ -273,16 +326,49 @@ def bidir_closure_device(active, row_block, col_block):
     return upper_tri_device(active | mirror, row_block, col_block)
 
 
+def group_rows_device(active, rows, row_block, col_block):
+    """The part of :func:`bidir_closure_device`'s ``B`` that the rows of
+    ``active`` (the deal ``rows`` of the row blocks) hold: (ncb, ncb)
+    uint8, entry (g, c) 1 iff a dealt row block of column block g's span
+    is active at column block c. Summed over the deals of a mesh, it is
+    non-zero where ``B`` is true."""
+    ncb = active.shape[1]
+    span = col_block // row_block
+    if col_block % row_block != 0:
+        raise ValueError("bidir_closure needs col_block % row_block == 0")
+    # a column block's span of row blocks, counted per deal: at most span
+    wide = torch.uint8 if span < 256 else torch.int32
+    part = torch.zeros((ncb, ncb), dtype=wide, device=active.device)
+    grp = row_ids(active.shape[0], rows, active.device)[:, 0] // span
+    part.index_add_(0, grp, active.to(wide) if wide != torch.uint8
+                    else active.view(torch.uint8))
+    return part.clamp_(max=1).to(torch.uint8)
+
+
+def closure_rows_device(active, groups, rows, row_block, col_block):
+    """:func:`bidir_closure_device` of a mask whose rows lie on several
+    devices, for the rows of ``active`` (the deal ``rows``): ``groups``
+    is its ``B``, the (ncb, ncb) bool tensor where the sum of every
+    deal's :func:`group_rows_device` is non-zero, on ``active``'s device.
+    Row block ri's mirror at column block c is ``B[c, ri // span]``."""
+    span = col_block // row_block
+    grp = row_ids(active.shape[0], rows, active.device)[:, 0] // span
+    mirror = _allocated(groups.T[grp])
+    return upper_tri_device(active | mirror, row_block, col_block, rows)
+
+
 def band_mask_device(n_row_blocks, n_col_blocks, row_block, col_block,
-                     half_width, device):
+                     half_width, device, rows=None):
     """:func:`band_mask` on ``device``, its float comparison doubled into
-    exact int64 arithmetic so that it equals the host mask at any N."""
-    rc2 = (2 * torch.arange(n_row_blocks, device=device) + 1) * row_block
+    exact int64 arithmetic so that it equals the host mask at any N;
+    ``rows`` keeps the row blocks of that deal."""
+    ri = row_ids(deal_rows(n_row_blocks, rows), rows, device)[:, 0]
+    rc2 = (2 * ri + 1) * row_block
     col_lo2 = 2 * torch.arange(n_col_blocks, device=device) * col_block
     col_hi2 = col_lo2 + 2 * col_block
     hw2 = 2 * half_width
-    return ((col_hi2[None, :] >= rc2[:, None] - hw2)
-            & (col_lo2[None, :] <= rc2[:, None] + hw2))
+    return _allocated((col_hi2[None, :] >= rc2[:, None] - hw2)
+                      & (col_lo2[None, :] <= rc2[:, None] + hw2))
 
 
 def rmask_gather_device(planes, ti, tj):
@@ -302,30 +388,24 @@ def mask_bits(rmask, n_radii):
                for r in range(n_radii))
 
 
-def tile_list_device(active):
+def tile_list_device(active, rows=None):
     """:func:`tile_list` of a bool tensor, on its device: row-major flat
     (ti, tj) int32 tensors, or None when nothing is active. The count is
-    its one host sync."""
-    nz = torch.nonzero(active)
+    its one host sync. ``rows``: the deal of row blocks that ``active``'s
+    rows are, whose global indices ``ti`` then holds (None: all)."""
+    nz = torch.nonzero(_allocated(active))
     if nz.shape[0] == 0:
         return None
     tiles = nz.T.to(torch.int32).contiguous()
+    if rows is not None:
+        tiles[0].mul_(rows[1]).add_(rows[0])
     return tiles[0], tiles[1]
 
 
-def split_tiles_balanced(tiles, rank, size):
-    """Share ``rank`` of a flat row-major tile list dealt round-robin over
-    the ``size`` devices of a mesh (a local mesh's, or a group's ranks):
-    entries ``rank, rank + size, ...`` of each tensor of ``tiles`` (ti, tj
-    and any per-tile arrays), contiguous, on their device. The shares are
-    balanced within one tile, each stays row-major sorted, and any device
-    may sweep any tile, since the partial results merge by a SUM or MIN
-    (``parallel.mesh``).
-
-    Counterpart of ``clustering_tpu.ops.pruning.split_tiles_balanced``
-    without its pads and chunk buckets, which exist for XLA's static
-    shapes: the CUDA wrappers take any length, 0 included."""
-    return tuple(t[rank::size].contiguous() for t in tiles)
+def local_rows(ti, rows):
+    """Global row block indices ``ti`` of a deal's list as rows of its
+    matrices (the deal ``rows``; ``ti`` itself for None)."""
+    return ti if rows is None else (ti - rows[0]) // rows[1]
 
 
 # -- skip words of the dense-grid kernels (kernels.pops_tiles, nn_tiles) -----

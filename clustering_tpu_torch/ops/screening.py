@@ -20,9 +20,10 @@ reach the same fixpoint:
 
 Both sweeps' tile lists are planned on the device.
 
-With a mesh (``parallel.mesh``), each device sweeps its round-robin share
-of the list against copies of its own of the coordinates, the labels and
-the dirty flags, and the swept labels (bidir) or proposals (symmetric)
+With a mesh (``parallel.mesh``), each device plans the tiles of the row
+blocks dealt to it (its own strict-< plane over those rows) and sweeps
+them against copies of its own of the coordinates, the labels and the
+dirty flags, and the swept labels (bidir) or proposals (symmetric)
 merge by a MIN before the union (the counterpart of the JAX package's
 ``_screening_sharded_pallas_bidir``); on a group's mesh a rank's devices
 merge on its primary device, then over the ranks by ``all_reduce``. The
@@ -39,7 +40,7 @@ import torch
 from ..utils.logger import is_verbose, logger
 from ..utils.timer import adopt, count, current, span
 
-from ..parallel.mesh import LocalMesh
+from ..parallel.mesh import LocalMesh, planning, skew
 from . import kernels, pruning
 from .engine import (DEFAULT_COL_BLOCK, DEFAULT_ROW_BLOCK, engine_device,
                      per_device_tiles, resolve_backend, warm_failed,
@@ -55,15 +56,17 @@ def pointer_jump(table):
         table = nxt
 
 
-def screen_active(below, n_below, row_lo, row_block, col_block, triangular):
+def screen_active(below, n_below, row_lo, row_block, col_block, triangular,
+                  rows=None):
     """Tiles that can hold an admissible pair: the strict-< bbox plane
     ``below`` (a tensor on any device, or numpy: the tests' reference,
     which no sweep plans with) inside the n_below prefix, touching the
     new-frame cross when ``row_lo`` > 0, and (``triangular``)
-    intersecting the upper triangle."""
+    intersecting the upper triangle. ``rows``: the deal of row blocks
+    that ``below``'s rows are (a tensor's; None: all)."""
     nrb, ncb = below.shape
     if isinstance(below, torch.Tensor):
-        ri = torch.arange(nrb, device=below.device)[:, None]
+        ri = pruning.row_ids(nrb, rows, below.device)
         cj = torch.arange(ncb, device=below.device)[None, :]
     else:
         ri = np.arange(nrb)[:, None]
@@ -114,6 +117,9 @@ class ScreeningEngine:
         self.mesh = mesh
         # the devices the sweeps run on: one without a mesh
         self._spread = LocalMesh((self.device,)) if mesh is None else mesh
+        # each device and the row blocks it plans (None: all of them)
+        self._deals = ([(self.device, None)] if mesh is None
+                       else mesh.row_deals())
         self.row_block = row_block
         self.col_block = col_block
         coords_sorted = np.asarray(coords_sorted, dtype=np.float32)
@@ -127,32 +133,40 @@ class ScreeningEngine:
                                         device=self.device)
         # each device's own coordinates, the first the engine's
         self._coords_copies = self._spread.copies(self.coords_t)
-        self._below = None  # (max_dist2, strict-< bool plane on device)
+        # (max_dist2, each deal's strict-< bool plane on its device)
+        self._below = None
         self.last_stats = {}
 
-    def _below_plane(self, max_dist2):
-        """The strict-< bbox activity plane at ``max_dist2`` on the device;
-        the bbox distances are dropped once thresholded (512 MB at 2^23
-        frames)."""
+    def _below_plane(self, max_dist2, part=0):
+        """The strict-< bbox activity plane at ``max_dist2`` of the row
+        blocks of deal ``part`` (all of them without a mesh), on its
+        device; every deal's is built at once, each from its device's
+        coordinates, and the bbox distances are dropped once thresholded
+        (512 MB at 2^23 frames)."""
         key = float(max_dist2)
         if self._below is None or self._below[0] != key:
             self._below = None
-            d2b = pruning.bbox_d2(self.coords_t, self.row_block,
-                                  self.col_block)
-            below = pruning.le_planes_device(
-                d2b, [np.float32(max_dist2)], strict=True)[0]
-            del d2b
-            self._below = (key, below)
-        return self._below[1]
+            planes = []
+            for ct, (_, rows) in zip(self._coords_copies, self._deals):
+                d2b = pruning.bbox_d2(ct, self.row_block, self.col_block,
+                                      rows=rows)
+                planes.append(pruning.le_planes_device(
+                    d2b, [np.float32(max_dist2)], strict=True)[0])
+                del d2b
+            self._below = (key, planes)
+        return self._below[1][part]
 
-    def tile_list(self, row_lo, n_below, max_dist2, triangular=True):
-        """The tiles of :func:`screen_active` at this linking distance,
-        planned on the device: a flat row-major (ti, tj) list of int32
+    def tile_list(self, row_lo, n_below, max_dist2, triangular=True,
+                  part=0):
+        """The tiles of :func:`screen_active` at this linking distance in
+        the row blocks of deal ``part`` (all of them without a mesh),
+        planned on its device: a flat row-major (ti, tj) list of int32
         tensors, or None; the bidirectional sweep's list when
         ``triangular``, else the symmetric sweep's."""
+        rows = self._deals[part][1]
         return pruning.tile_list_device(screen_active(
-            self._below_plane(max_dist2), n_below, row_lo, self.row_block,
-            self.col_block, triangular))
+            self._below_plane(max_dist2, part), n_below, row_lo,
+            self.row_block, self.col_block, triangular, rows), rows)
 
     def union_size(self, n_below):
         """Union prefix: power-of-two col-block count >= n_below."""
@@ -193,14 +207,23 @@ class ScreeningEngine:
         ``screening.fixpoint`` spans; the latter counts ``sweeps`` and
         ``swept_tiles``."""
         bidir = self._bidir_ok()
-        with span("screening.plan") as plan_span:
-            tiles = self.tile_list(row_lo, n_below, max_dist2,
-                                   triangular=bidir)
-            if tiles is None:
+        with span("screening.plan") as plan_span, planning(self.mesh):
+            lists = [self.tile_list(row_lo, n_below, max_dist2,
+                                    triangular=bidir, part=k)
+                     for k in range(len(self._deals))]
+            counts = [0 if t is None else len(t[0]) for t in lists]
+            everyone = self._spread.all_counts(counts)
+            n_tiles = sum(everyone)
+            if not n_tiles:
                 return labels
-            n_tiles = len(tiles[0])
-            shares = self._spread.shares(tiles)
+            empty = [torch.zeros(0, dtype=torch.int32, device=dev)
+                     for dev, _ in self._deals]
+            shares = [t or (e, e) for t, e in zip(lists, empty)]
+            del lists
         with span("screening.fixpoint") as fixpoint:
+            ratio = skew(everyone)
+            if ratio is not None:
+                count("tiles_max_over_mean", ratio)
             labels, iters, swept = self._fixpoint(labels, n_below,
                                                   max_dist2, bidir, shares)
             count("sweeps", iters)
@@ -215,7 +238,7 @@ class ScreeningEngine:
                 stats.update(mode=mode + "-mesh",
                              mesh_devices=self.mesh.size,
                              per_device_tiles=per_device_tiles(
-                                 self.mesh, [len(s[0]) for _, s in shares]))
+                                 self.mesh, counts))
             if is_verbose() and not self._quiet:
                 logger(f"    [{tag}screening fixpoint: {iters} sweeps,"
                        f" {n_tiles} tiles/sweep, {swept} swept, {mode},"
@@ -242,7 +265,7 @@ class ScreeningEngine:
             dcols = self._spread.copies(dirty_col)
             drows = self._spread.copies(dirty_row) if bidir else None
             parts, counts = [], []
-            for k, (ct, lab, (_, (ti, tj))) in enumerate(zip(
+            for k, (ct, lab, (ti, tj)) in enumerate(zip(
                     self._coords_copies, self._spread.copies(labels),
                     shares)):
                 if bidir:
@@ -284,9 +307,9 @@ class ThresholdSeriesScreener:
     below every series threshold stays contiguous while Morton order
     inside each band keeps tile bounding boxes tight. Clusters are named
     by their minimal FE-sorted frame rank, as in the reference. With a
-    ``mesh`` (either kind), the series runs on every device's share of
-    each step's list, from the main thread (``step_submit``'s pool only
-    downloads).
+    ``mesh`` (either kind), each device plans and sweeps the tiles of its
+    own row blocks at every step, from the main thread (``step_submit``'s
+    pool only downloads).
 
     ``morton_order`` is the (n,) int64 Morton order of ``coords``
     (``pruning.morton_order``) when the caller already holds it, as the

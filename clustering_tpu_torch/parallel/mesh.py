@@ -2,29 +2,43 @@
 a process group on ``torch.distributed``, each driving one or several.
 
 Counterpart of ``clustering_tpu/parallel/mesh.py``. The JAX package
-meshes every chip it sees, of every process, into one SPMD program; the
-density stages deal every tile list round-robin over the mesh's devices
-(``ops.pruning.split_tiles_balanced``), each device sweeps its share
-into full-size partial results, and the partials merge: SUM for counts,
-MIN for the packed (d2, id) NN keys and for labels -- the counterparts of
-the JAX package's ``psum`` and ``pmin``. Two kinds of mesh serve that
-one interface (``shares``, ``copies``, ``sum``, ``min``, ``device``,
-``devices``, ``size``):
+meshes every chip it sees, of every process, into one SPMD program. Here
+the density stages deal the row blocks of every tile grid over the
+mesh's devices, as moldyn/Clustering's multi-GPU backend gives each GPU
+a range of rows: the device of global index g of S owns the row blocks
+g, g + S, g + 2S, ... (:meth:`LocalMesh.row_deals`), plans the bounds,
+planes and tile list of those rows against every column block on its
+own copy of the frames, and sweeps that list into full-size partial
+results; the partials merge: SUM for counts, MIN for the packed (d2, id)
+NN keys and for labels -- the counterparts of the JAX package's ``psum``
+and ``pmin``. Every device sweeps the tiles of its rows that one device
+would sweep, so the results are one device's bit for bit, and no device
+holds more than ``ceil(nrb / S)`` rows of any block-pair matrix. Two
+kinds of mesh serve that one interface (``row_deals``, ``copies``,
+``sum``, ``min``, ``all_counts``, ``sum_ranks``, ``device``, ``devices``,
+``size``):
 
 - :class:`LocalMesh`, the single controller: this process plans each
-  list once on its primary device (``devices[0]``), launches every
-  device's share on that device, and merges the partials there by peer
-  copies and a reduction. :func:`make_mesh` builds it in a plain
-  process, over every visible card by default, as the JAX CLI does.
+  device's rows on that device, launches its sweep there, and merges
+  the partials on the primary device (``devices[0]``) by peer copies
+  and a reduction. :func:`make_mesh` builds it in a plain process, over
+  every visible card by default, as the JAX CLI does.
 - :class:`Mesh`, one rank of an initialised process group with its own
-  devices, one or several: every rank plans the same lists; device ``k``
-  of a rank sweeps the share of global device index ``offset + k`` of
-  ``size`` (all ranks' devices), so that the shares are a
-  :class:`LocalMesh`'s of ``size`` devices whatever the split over
-  ranks. A merge folds the rank's parts into its primary device's, as a
-  local mesh does, then runs one ``all_reduce`` over the ranks
-  (:func:`psum_`, :func:`pmin_`) on that tensor, from one thread, in the
-  same order on every rank.
+  devices, one or several: device ``k`` of a rank owns the rows of
+  global device index ``offset + k`` of ``size`` (all ranks' devices),
+  so that the deals are a :class:`LocalMesh`'s of ``size`` devices
+  whatever the split over ranks. A merge folds the rank's parts into
+  its primary device's, as a local mesh does, then runs one
+  ``all_reduce`` over the ranks (:func:`psum_`, :func:`pmin_`) on that
+  tensor, from one thread, in the same order on every rank.
+
+Spans (``utils.timer``): the engines open ``mesh.plan`` around each
+stage's per-device planning (:func:`planning`; counters ``rows_max``
+and ``matrix_bytes_max``, the most row blocks and the largest block-pair
+matrix that one device planned), and each merge of more than one part is
+a ``mesh.merge`` span whose counter ``bytes`` counts the partials copied
+to the primary device and, on a group's mesh, the tensor reduced over
+the ranks. Neither opens without a mesh.
 
 Either way the caller holds the whole result afterwards, so the JAX
 helpers ``replicated`` and ``fetch`` have no counterpart here.
@@ -40,12 +54,15 @@ own, ``cuda:local_index % device_count`` (one process per card, as under
 ``torchrun --nproc-per-node K``).
 """
 
+import contextlib
 import dataclasses
 import os
 import socket
 
 import torch
 import torch.distributed as dist
+
+from ..utils.timer import span
 
 DISTRIBUTED_ENV = "CLUSTERING_TPU_DISTRIBUTED"
 COORDINATOR_ENV = "CLUSTERING_TPU_COORDINATOR"
@@ -57,18 +74,11 @@ LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 LOCAL_ENV = ("LOCAL_RANK", "LOCAL_WORLD_SIZE")
 
 
-def _deal(tiles, index, size):
-    # the engines import this module: import theirs at call time
-    from ..ops.pruning import split_tiles_balanced
-    return split_tiles_balanced(tiles, index, size)
-
-
-def _shares(tiles, devices, offset, size):
-    """[(device, its share of ``tiles``)] for ``devices``, the global
-    indices ``offset``, ``offset + 1``, ... of ``size``; each share on its
-    device."""
-    return [(dev, tuple(t.to(dev) for t in _deal(tiles, offset + k, size)))
-            for k, dev in enumerate(devices)]
+def _row_deals(devices, offset, size):
+    """[(device, (start, step))]: ``devices``, the global indices
+    ``offset``, ``offset + 1``, ... of ``size``, each with the row blocks
+    ``start, start + step, ...`` that it owns."""
+    return [(dev, (offset + k, size)) for k, dev in enumerate(devices)]
 
 
 def _copies(t, devices):
@@ -76,6 +86,10 @@ def _copies(t, devices):
     copy of its own for each other one, even on the same device
     (``t.to(dev)`` would return ``t`` there)."""
     return [t] + [t.to(dev, copy=True) for dev in devices[1:]]
+
+
+def _nbytes(t):
+    return t.numel() * t.element_size()
 
 
 def _local_sum(parts):
@@ -92,11 +106,42 @@ def _local_min(parts):
     return out
 
 
+def _merge(fold, parts, reduce=None):
+    """``fold`` of the parts into the first, then ``reduce`` of it over the
+    ranks if given, in a ``mesh.merge`` span counting the ``bytes``
+    copied; a single part on one process is returned as it is."""
+    if len(parts) == 1 and reduce is None:
+        return parts[0]
+    moved = sum(_nbytes(p) for p in parts[1:])
+    if reduce is not None:
+        moved += _nbytes(parts[0])
+    with span("mesh.merge", bytes=moved):
+        out = fold(parts)
+        return out if reduce is None else reduce(out)
+
+
+def planning(mesh):
+    """The ``mesh.plan`` span of a stage's per-device planning on
+    ``mesh``; nothing (a null context) without a mesh. The planners of
+    ``ops.pruning`` count on it the most rows and the largest block-pair
+    matrix one device allocated."""
+    return contextlib.nullcontext() if mesh is None else span("mesh.plan")
+
+
+def skew(counts):
+    """The most tiles one device sweeps over the mean of ``counts`` (one
+    per device), or None for a single device or no tiles."""
+    total = sum(counts)
+    if len(counts) < 2 or total == 0:
+        return None
+    return max(counts) * len(counts) / total
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """The devices of a process group's ranks, seen from one of them: the
     ``group``, this ``rank``, its ``devices`` (a tuple, the first one
-    primary: the ``device`` where it plans and merges), ``offset``, the
+    primary: the ``device`` where it merges), ``offset``, the
     global index of its first device, and ``size``, the global device
     count (the JAX package's ``mesh_size``; the world size with one
     device per rank). A device may repeat, as in a :class:`LocalMesh`."""
@@ -110,10 +155,23 @@ class Mesh:
     def device(self):
         return self.devices[0]
 
-    def shares(self, tiles):
-        """[(device, its share of ``tiles``)], one entry per device of this
-        rank, dealt by global device index."""
-        return _shares(tiles, self.devices, self.offset, self.size)
+    def row_deals(self):
+        """[(device, (start, step))], one entry per device of this rank:
+        the row blocks it owns, by global device index."""
+        return _row_deals(self.devices, self.offset, self.size)
+
+    def all_counts(self, counts):
+        """The per-device ``counts`` (ints, one per device of this rank) of
+        every rank, by global device index: one ``all_reduce``, so that
+        every rank decides alike."""
+        t = torch.zeros(self.size, dtype=torch.int64, device=self.device)
+        t[self.offset:self.offset + len(counts)] = torch.tensor(
+            counts, dtype=torch.int64)
+        return psum_(t, self).tolist()
+
+    def sum_ranks(self, t):
+        """``t`` (on the primary device) summed over the ranks, in place."""
+        return psum_(t, self)
 
     def copies(self, t):
         """As :meth:`LocalMesh.copies`, over this rank's devices."""
@@ -122,19 +180,19 @@ class Mesh:
     def sum(self, parts):
         """The parts (one per device of this rank) summed into the first,
         then over the ranks, in place; returns it."""
-        return psum_(_local_sum(parts), self)
+        return _merge(_local_sum, parts, lambda t: psum_(t, self))
 
     def min(self, parts):
         """The parts' elementwise minimum, into the first, then over the
         ranks, in place; returns it."""
-        return pmin_(_local_min(parts), self)
+        return _merge(_local_min, parts, lambda t: pmin_(t, self))
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalMesh:
     """Several devices driven from this process (the JAX package's single
     controller): ``devices[0]`` is the primary ``device``, where the
-    caller plans and where the partial results merge.
+    partial results merge; each device plans its own row blocks.
 
     A device may appear more than once: a mesh over ``["cpu"] * 3`` or
     ``[cuda:0] * 2`` deals and merges as a mesh over as many devices
@@ -151,11 +209,19 @@ class LocalMesh:
     def device(self):
         return self.devices[0]
 
-    def shares(self, tiles):
-        """[(device, its share of the per-tile tensors ``tiles``)], one
-        entry per device of the mesh, dealt round-robin; each share on its
-        device."""
-        return _shares(tiles, self.devices, 0, self.size)
+    def row_deals(self):
+        """[(device, (start, step))], one entry per device of the mesh: the
+        row blocks it owns, ``k, k + size, ...`` for device ``k``."""
+        return _row_deals(self.devices, 0, self.size)
+
+    def all_counts(self, counts):
+        """``counts`` (ints, one per device), as :meth:`Mesh.all_counts`
+        gathers them over the ranks."""
+        return list(counts)
+
+    def sum_ranks(self, t):
+        """``t`` itself: there are no other ranks."""
+        return t
 
     def copies(self, t):
         """``t`` (on the primary device) for the first device, and a copy of
@@ -165,12 +231,12 @@ class LocalMesh:
     def sum(self, parts):
         """The parts (one per device) summed into the first, on the primary
         device; returns it."""
-        return _local_sum(parts)
+        return _merge(_local_sum, parts)
 
     def min(self, parts):
         """The parts' elementwise minimum, into the first, on the primary
         device; returns it."""
-        return _local_min(parts)
+        return _merge(_local_min, parts)
 
 
 def requested():

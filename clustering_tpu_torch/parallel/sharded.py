@@ -9,10 +9,10 @@ several). ``backend`` follows the port's ops functions: "auto" (the
 default here) and "pallas" take the tile-sweep route; "xla", the JAX
 functions' default, selects the dense programs that are not ported
 (below) and raises ValueError, as does anything else. Each function runs
-the single-device engine with ``mesh``: the whole tile list is planned
-once per process, each device sweeps its round-robin share (by global
-device index on a group's mesh), and the partial results merge; the
-caller gets the whole, bit-identical to one device's.
+the single-device engine with ``mesh``: each device plans and sweeps the
+tiles of the row blocks dealt to it (by global device index on a group's
+mesh), and the partial results merge; the caller gets the whole,
+bit-identical to one device's.
 ``ThresholdSeriesScreener(..., mesh=mesh)`` distributes a screening
 series the same way.
 

@@ -7,8 +7,11 @@ thread (nothing when none is open); ``count_pending(name, tensor)`` adds
 the sum of a device tensor that queued work writes, read when the span's
 owner calls :meth:`Span.settle` after a download has drained the stream
 (or at the export, at the latest), so that counting waits on nothing.
-``stage_timer(label)`` is a span that also writes the ``-v`` line
-``    [label: 1.234s]``, the JAX package's ``utils.logger.stage_timer``.
+``count_max(name, value, within)`` raises a counter of the innermost
+open span of that name to ``value`` (the planners' largest matrix on a
+mesh's ``mesh.plan``). ``stage_timer(label)`` is a span that also
+writes the ``-v`` line ``    [label: 1.234s]``, the JAX package's
+``utils.logger.stage_timer``.
 Every layer of the port opens its spans here: ``cli``,
 ``models.density``, ``utils.io``, ``ops.engine``, ``ops.screening`` and
 ``ops.kernels`` (its launches and tiles, and the step counts of
@@ -232,6 +235,16 @@ def count(name, value=1):
     if stack:
         counters = stack[-1].counters
         counters[name] = counters.get(name, 0) + value
+
+
+def count_max(name, value, within):
+    """Raise counter ``name`` of the innermost span named ``within`` open
+    on the calling thread to ``value``, if it is lower; nothing when no
+    such span is open."""
+    for s in reversed(_stack()):
+        if s.name == within:
+            s.counters[name] = max(s.counters.get(name, value), value)
+            return
 
 
 def count_pending(name, tensor):

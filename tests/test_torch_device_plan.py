@@ -230,16 +230,20 @@ def _tiered_lists(eng, fe, bidir):
                         tengine.NN_BAND_BLOCKS, bidir, stats)["keys"]
     rows = eng._nn_rows("dim0", eng._fe_layout(fe, "dim0"))
     qs = eng.TIER_QS_DEFAULT
-    _, _, tiles = eng._nn_tiered_plan(rows, keys, qs, bidir, dict(stats))
+    _, _, (tiles,) = eng._nn_tiered_plan(rows, keys, qs, bidir,
+                                         dict(stats))
     tier, taus = tengine._ub_tiers(tkernels.unpack_keys(keys)[0],
                                    eng.n, qs)
-    tier_w, perm = tengine._tier_sort_perm(tier, rows[0][2], eng.n,
-                                           len(qs) + 1)
-    layout = tengine._tiered_layout_sym if bidir else tengine._tiered_layout
-    active = layout(*rows[0], tier_w, taus, perm, rb, cb,
-                    len(qs) + 1)[3].cpu().numpy()
+    n_tiers = len(qs) + 1
+    tier_w, perm = tengine._tier_sort_perm(tier, rows[0][2], eng.n, n_tiers)
     if bidir:
+        rows_t, _, _, bound = tengine._tiered_rows(*rows[0], tier_w, taus,
+                                                   perm, rb, n_tiers)
+        active = tengine._tier_active(rows_t, bound, rb, cb).cpu().numpy()
         active = tpruning.bidir_closure(active, rb, cb)
+    else:
+        active = tengine._tiered_layout(*rows[0], tier_w, taus, perm, rb, cb,
+                                        n_tiers)[3].cpu().numpy()
     return tiles, tpruning.tile_list(active)
 
 
@@ -369,7 +373,7 @@ def test_plans_match_host_planners(blobs, bidir):
 @pytest.mark.parametrize("stage", ["populations", "nn", "screening"])
 def test_a_failing_device_planner_raises(blobs, monkeypatch, stage):
     """No fallback to the host plan when the device plan fails."""
-    def boom(mask):
+    def boom(mask, rows=None):
         raise RuntimeError("out of memory")
     eng = tengine.DensityEngine(blobs, RB, CB, device="cpu")
     fe = free_energies(eng.populations([0.3])[0.3])

@@ -1,7 +1,8 @@
 """The port's process-group mesh with several devices per rank: each rank
-of a group drives its own devices and the density stages deal every tile
-list over all devices of all ranks, by global device index, as the JAX
-package's multi-process mesh does (``tests/test_distributed.py``: 2
+of a group drives its own devices and the density stages deal the row
+blocks over all devices of all ranks, by global device index, each
+device planning and sweeping its own rows, as the JAX package's
+multi-process mesh spans every device (``tests/test_distributed.py``: 2
 processes x 4 devices, one 8-device mesh).
 
 Ranks are gloo processes on the CPU with a ``FileStore`` rendezvous, as
@@ -152,6 +153,7 @@ for form, kw in (("n_devices", dict(n_devices=len(split), devices=mine)),
 full = pmesh.make_mesh(n_devices=sum(split), devices=mine)
 mesh = pmesh.make_mesh(devices=mine)
 layout = dict(rank=mesh.rank, offset=mesh.offset, size=mesh.size,
+              deals=[list(rows) for _, rows in mesh.row_deals()],
               devices=[str(d) for d in mesh.devices],
               full_size=full.size)
 # the host-name gather as under NCCL: through a gloo group of its own
@@ -311,9 +313,13 @@ def test_group_mesh_bit_identical_to_one_device(split, groups, local_runs):
 def test_group_mesh_shares_are_the_local_deal(split, groups, local_runs):
     """The mesh spans every rank's devices: ``offset`` is the sum of the
     lower ranks' device counts, ``size`` and ``mesh_devices`` the global
-    count; each stage's ``per_device_tiles`` on rank r (a list over its
-    devices, or its int with one device) equals a LocalMesh of the global
-    size at the device's global index, on both routes."""
+    count; each device owns the row blocks of its global index g,
+    ``g, g + size, ...``, as a LocalMesh of the global size deals them;
+    each stage's ``per_device_tiles`` on rank r (a list over its
+    devices, or its int with one device) equals that LocalMesh's at the
+    device's global index, on both routes (``test_torch_mesh_rows``
+    holds a local mesh's lists disjoint, their union the one-device
+    list)."""
     counts = SPLITS[split]
     size = sum(counts)
     _, local = local_runs(size)
@@ -323,6 +329,8 @@ def test_group_mesh_shares_are_the_local_deal(split, groups, local_runs):
         assert (lay["rank"], lay["offset"], lay["size"]) == (rank, offset,
                                                              size)
         assert lay["devices"] == ["cpu"] * counts[rank]
+        assert lay["deals"] == [[offset + k, size]
+                                for k in range(counts[rank])]
         assert lay["full_size"] == size
         for route, _ in ROUTES:
             st = meta["stats"][route]

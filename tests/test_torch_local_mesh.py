@@ -3,7 +3,7 @@ process, one process driving several devices (``LocalMesh``), against
 one device and against the JAX package's mesh functions.
 
 Local meshes over ``["cpu"] * k``, k = 2, 3, 4: a device named k times
-deals each tile list into k shares, each swept on buffers of its own,
+plans and sweeps the tiles of its own row blocks on buffers of its own,
 and merges them as k cards would. On both sweep routes (the engines'
 bidirectional switches on, then off), populations (two radii), nearest
 neighbours (tiered and block-bound phase 2), ``screening_labels`` and a
@@ -154,9 +154,10 @@ def test_local_mesh_bit_identical_to_one_device(route, k, engine_runs):
 @pytest.mark.parametrize("k", SIZES)
 @pytest.mark.parametrize("route", ROUTES)
 def test_local_mesh_shares_sum_to_one_device_tiles(route, k, engine_runs):
-    """Each stage deals its list into k shares, one per device, balanced
-    within one tile, summing to the one-device list; the stats say the
-    route on a mesh of k devices. The row-side route keeps NN block-bound
+    """Each stage deals its row blocks over k devices, whose lists, one
+    per device, sum to the one-device list (``test_torch_mesh_rows``
+    holds them disjoint, their union the one-device set); the stats say
+    the route on a mesh of k devices. The row-side route keeps NN block-bound
     on a mesh (the JAX engine's rule), so its tiered request is held
     against the one-device block-bound list."""
     _, one = engine_runs(route, 0)
@@ -178,7 +179,6 @@ def test_local_mesh_shares_sum_to_one_device_tiles(route, k, engine_runs):
             shares = shares[part]
         assert len(shares) == k, (stage, shares)
         assert sum(shares) == one[want_stage][total] > 0, (stage, shares)
-        assert max(shares) - min(shares) <= 1, (stage, shares)
         assert st["mesh_devices"] == k
         key = "route" if stage.startswith("nn") else "mode"
         assert st[key] == route + "-mesh", (stage, st[key])

@@ -34,9 +34,9 @@ import torch
 
 from clustering_tpu import ops as jops
 from clustering_tpu import parallel as jparallel
-from clustering_tpu.ops import pruning as jpruning
 from clustering_tpu.ops.screening import ThresholdSeriesScreener as JSeries
 from clustering_tpu_torch.ops import pruning
+from clustering_tpu_torch.parallel import LocalMesh
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RB, CB = 8, 16
@@ -238,31 +238,40 @@ def _ulps(a, b):
     return int(np.abs(a - b).max())
 
 
-# -- split_tiles_balanced ----------------------------------------------------
+# -- the row deal -------------------------------------------------------------
 
-@pytest.mark.parametrize("n_dev,n_tiles", [(1, 37), (2, 37), (3, 37),
-                                           (8, 37), (3, 0)])
-def test_split_tiles_balanced_matches_jax(n_dev, n_tiles):
-    rng = np.random.default_rng(n_tiles + n_dev)
-    act = rng.random((9, 9)) < 0.5
-    ti, tj = (a[:n_tiles].astype(np.int32) for a in np.nonzero(act))
-    assert len(ti) == n_tiles
-    rmask = rng.integers(1, 8, size=n_tiles).astype(np.int32)
-    want_i, want_j, counts = jpruning.split_tiles_balanced(ti, tj, n_dev)
-    shares = [pruning.split_tiles_balanced(
-        tuple(map(torch.from_numpy, (ti, tj, rmask))), rank, n_dev)
-        for rank in range(n_dev)]
-    for rank, (si, sj, sm) in enumerate(shares):
-        m = int(counts[rank])
-        np.testing.assert_array_equal(si.numpy(), want_i[rank].ravel()[:m])
-        np.testing.assert_array_equal(sj.numpy(), want_j[rank].ravel()[:m])
-        np.testing.assert_array_equal(sm.numpy(), rmask[rank::n_dev])
-        assert si.is_contiguous() and si.dtype == torch.int32
-        # each share stays row-major sorted
-        key = si.numpy().astype(np.int64) * 9 + sj.numpy()
-        assert (np.diff(key) > 0).all()
-    sizes = [len(s[0]) for s in shares]
-    assert sum(sizes) == n_tiles and max(sizes) - min(sizes) <= 1
+@pytest.mark.parametrize("n_dev,n_rows", [(1, 37), (2, 37), (3, 37),
+                                          (8, 37), (3, 0)])
+def test_row_deals_partition_the_plan(n_dev, n_rows):
+    """A mesh of ``n_dev`` devices deals row blocks g, g + n_dev, ... to
+    device g: the deals cover every row block once, none holds more than
+    ceil(nrb / n_dev), and the tile lists that the devices plan on their
+    rows, with global row indices, partition the one-device list, each
+    row-major sorted."""
+    rng = np.random.default_rng(n_rows + n_dev)
+    act = torch.from_numpy(rng.random((n_rows, 9)) < 0.5)
+    deals = LocalMesh((torch.device("cpu"),) * n_dev).row_deals()
+    assert [rows for _, rows in deals] == [(g, n_dev) for g in range(n_dev)]
+    owned = np.concatenate([np.arange(n_rows)[g::s] for _, (g, s) in deals])
+    assert sorted(owned.tolist()) == list(range(n_rows))
+    want = pruning.tile_list_device(act)
+    got = []
+    for _, rows in deals:
+        part = act[rows[0]::rows[1]]
+        assert part.shape[0] == pruning.deal_rows(n_rows, rows) \
+            <= -(-n_rows // n_dev)
+        tiles = pruning.tile_list_device(part, rows)
+        if tiles is None:
+            continue
+        ti, tj = (t.numpy().astype(np.int64) for t in tiles)
+        assert tiles[0].dtype == torch.int32
+        assert (np.diff(ti * 9 + tj) > 0).all()
+        assert (ti % n_dev == rows[0]).all()
+        got += list(zip(ti.tolist(), tj.tolist()))
+    if want is None:
+        assert not got
+        return
+    assert sorted(got) == list(zip(*(t.tolist() for t in want)))
 
 
 # -- gloo ranks on the CPU ---------------------------------------------------
@@ -294,7 +303,8 @@ def test_gloo_ranks_match_one_rank_and_jax_mesh(world, runs,
                 np.testing.assert_array_equal(got, want,
                                               err_msg=f"{route} {key}")
     assert len(np.unique(ranks[0]["bidir/clust1"])) > 2
-    # each stage: every rank's share of the whole list, balanced
+    # each stage: every rank's list of its own rows, the ranks' lists
+    # summing to the whole (every rank reads the global count)
     for route in ("bidir", "symmetric"):
         st = [r["stats"][route] for r in ranks]
         for stage, total, part in (
@@ -306,7 +316,7 @@ def test_gloo_ranks_match_one_rank_and_jax_mesh(world, runs,
             if part:
                 shares = [s[part] for s in shares]
             assert sum(shares) == st[0][stage][total] > 0, (route, stage)
-            assert max(shares) - min(shares) <= 1, (route, stage, shares)
+            assert all(s[stage][total] == st[0][stage][total] for s in st)
             assert st[0][stage][ROUTE_KEY[stage]] == route + "-mesh"
             assert st[0][stage]["mesh_devices"] == world
         for stage in ("populations", "nn", "screening"):

@@ -75,11 +75,12 @@ def _run_cli(workdir, coords, monkeypatch):
     (RB, CB), the ``[spans]`` line on; (its log, the masks of its
     plan)."""
     plans = []
-    real_plan = tengine.DensityEngine.pops_plan
+    real_plan = tengine.DensityEngine._pops_plans
 
-    def pops_plan(self, *args, **kwargs):
+    def pops_plans(self, *args, **kwargs):
         out = real_plan(self, *args, **kwargs)
-        plans.append(out[3].clone())
+        (deal,) = out[1]  # one device: one deal, every row
+        plans.append(deal[2].clone())
         return out
 
     monkeypatch.chdir(workdir)
@@ -87,7 +88,7 @@ def _run_cli(workdir, coords, monkeypatch):
     monkeypatch.setenv(tcli.SUBSTAGES_ENV, "1")
     monkeypatch.setattr(tdensity, "DensityEngine", functools.partial(
         tengine.DensityEngine, row_block=RB, col_block=CB))
-    monkeypatch.setattr(tengine.DensityEngine, "pops_plan", pops_plan)
+    monkeypatch.setattr(tengine.DensityEngine, "_pops_plans", pops_plans)
     np.savetxt("coords.dat", coords, fmt="%.6f")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):

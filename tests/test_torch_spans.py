@@ -362,6 +362,53 @@ def test_last_stats_substages_equal_the_spans(prefetch):
         assert fix["counters"]["swept_tiles"] == st["swept_tiles"]
 
 
+MESH_COUNTERS = ("rows_max", "matrix_bytes_max", "tiles_max_over_mean")
+
+
+@pytest.mark.parametrize("k", [0, 2, 3])
+def test_mesh_spans_on_a_cpu_mesh_and_none_without(k):
+    """On a mesh of k CPU devices each stage plans in ``mesh.plan`` spans
+    whose ``rows_max`` is at most ceil(nrb / k) and whose largest
+    ``matrix_bytes_max`` is the float32 bounds of the largest deal; every
+    merge is a ``mesh.merge`` span counting the bytes it copied, and the
+    stage spans count ``tiles_max_over_mean`` (at least 1). Without a
+    mesh (k = 0) no such span or counter exists."""
+    from clustering_tpu_torch.parallel import make_mesh
+    coords = _golden_coords()
+    mesh = make_mesh(devices=["cpu"] * k) if k else None
+
+    def run():
+        eng = tengine.DensityEngine(coords, RB, CB, device="cpu", mesh=mesh)
+        fe = tdops.free_energies(eng.populations([0.2])[0.2])
+        nh_d2 = eng.nearest_neighbors(fe, tier_qs=(0.5, 0.9))[1]
+        order = np.argsort(fe, kind="stable")
+        tscreening.ScreeningEngine(coords[order], RB, CB, device="cpu",
+                                   mesh=mesh).run(
+            np.arange(len(coords), dtype=np.int32), len(coords) * 3 // 4,
+            np.float32(4.0 * np.mean(nh_d2)))
+        return eng
+    eng, spans = _spans_since(run)
+    plans, merges = _named(spans, "mesh.plan"), _named(spans, "mesh.merge")
+    counted = [s for s in spans if set(MESH_COUNTERS) & set(s["counters"])]
+    if not k:
+        assert not plans and not merges and not counted
+        return
+    nrb, ncb = eng.n_pad // RB, eng.n_pad // CB
+    most = -(-nrb // k)
+    assert {_parent_name(spans, s) for s in plans} >= {
+        "populations.best_sort", "populations.radius_masks", "nn.plan",
+        "nn.band", "screening.plan"}
+    assert all(s["counters"]["rows_max"] <= most for s in plans)
+    assert max(s["counters"]["matrix_bytes_max"] for s in plans) \
+        == most * ncb * 4
+    assert merges and all(s["counters"]["bytes"] > 0 for s in merges)
+    skews = {s["name"]: s["counters"]["tiles_max_over_mean"] for s in spans
+             if "tiles_max_over_mean" in s["counters"]}
+    assert set(skews) == {"populations.sweep", "nn.band", "nn.phase2",
+                          "screening.fixpoint"}
+    assert all(1.0 <= v <= k for v in skews.values())
+
+
 def test_screener_build_spans_on_the_calling_thread():
     """Built through the API, the screener's spans run on the caller's
     thread under the same names, ``build_seconds`` the build's; without
